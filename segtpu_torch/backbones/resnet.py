@@ -185,9 +185,12 @@ class ResNetFeatures(nn.Module):
                                      nn.ReLU(inplace=True))
 
         widths = (64, 128, 256, 512)
+        expansion = 4 if block_kind == "bottleneck" else 1
+        #: widths of the four stage outputs
+        self.feature_channels = tuple(wd * expansion for wd in widths)
         for li in range(4):
             planes = widths[li]
-            out_planes = planes * (4 if block_kind == "bottleneck" else 1)
+            out_planes = planes * expansion
             blocks = []
             for bi in range(counts[li]):
                 stride = strides[li] if bi == 0 else 1

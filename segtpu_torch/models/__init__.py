@@ -1,5 +1,5 @@
-"""Model registry. Counterpart of ``segtpu/models/__init__.py``; PSPNet is
-the one model ported so far."""
+"""Model registry. Counterpart of ``segtpu/models/__init__.py``; PSPNet and
+UperNet are the models ported so far."""
 
 from __future__ import annotations
 
@@ -7,8 +7,9 @@ import torch
 
 from segtpu_torch import resolve_device
 from segtpu_torch.models.pspnet import PSPNet
+from segtpu_torch.models.upernet import UperNet
 
-MODELS = {"PSPNet": PSPNet}
+MODELS = {"PSPNet": PSPNet, "UperNet": UperNet}
 
 
 def get_model(name: str, *, device="cuda", seed: int = 0, **kwargs):

@@ -45,26 +45,39 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def _build(name: str, target: Path) -> None:
+def _start(name: str, target: Path):
+    """Start nvcc on ``<name>.cu``; returns (process, temporary output)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), tmp
+
+
+def _finish(name: str, target: Path, proc, tmp: Path) -> str:
+    """Wait for one nvcc; install its output, or return its error."""
+    out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                           f"{proc.stdout}")
+        return f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}"
     os.replace(tmp, target)
+    return ""
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The kernel libraries ``names``. Those not built yet are built by one
+    nvcc each, all started together."""
+    with _lock:
+        pending = [(name, _target(name)) for name in names if name not in _loaded]
+        builds = [(name, target, *_start(name, target))
+                  for name, target in pending if not target.exists()]
+        errors = [e for e in (_finish(*build) for build in builds) if e]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for name, target in pending:
+            _loaded[name] = ctypes.CDLL(str(target))
+        return {name: _loaded[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            target = _target(name)
-            if not target.exists():
-                _build(name, target)
-            lib = ctypes.CDLL(str(target))
-            _loaded[name] = lib
-        return lib
+    return load_all([name])[name]

@@ -27,6 +27,7 @@ def main(config, device="cuda"):
     from segtpu_torch.data import DATASETS
     from segtpu_torch.models import get_model
     from segtpu_torch.ops.conv_wgrad import stem_conv_wgrad
+    from segtpu_torch.ops.flatconv import flat_conv_dgrad, flat_conv_wgrad
     from segtpu_torch.trainer import Trainer, setup_logging
 
     device = resolve_device(device)
@@ -43,8 +44,9 @@ def main(config, device="cuda"):
     trainer = Trainer(model, config["loss"], config, train_loader, val_loader,
                       device=device)
     trainer.train()
-    logging.getLogger("segtpu_torch.train").info(
-        f"kernel launches: stem_conv_wgrad={stem_conv_wgrad.launches}")
+    logging.getLogger("segtpu_torch.train").info("kernel launches: " + ", ".join(
+        f"{fn.__name__}={fn.launches}"
+        for fn in (stem_conv_wgrad, flat_conv_wgrad, flat_conv_dgrad)))
     return trainer
 
 

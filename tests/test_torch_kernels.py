@@ -1,7 +1,7 @@
 """The stem weight-gradient module of the port: its plain version against
-segtpu's Pallas kernel (interpret mode), its autograd Function against
-autograd through a plain conv, and its CUDA kernel against the plain version
-on the card (marked ``cuda``, skipped without one)."""
+segtpu's Pallas kernel (interpret mode) and its autograd Function against
+autograd through a plain conv. Its CUDA kernel is held against the plain
+version on the card in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,23 +139,3 @@ def test_backbone_stem_grad_flag_on_matches_flag_off(style):
         feats(x)[-1].square().mean().backward()
         grads.append(_stem_conv(feats).weight.grad.numpy())
     assert rel_max(*grads) < REL_TOL
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(8, 769, 769, 3, 64, 3)])
-def test_cuda_kernel_matches_plain(shape, cuda_device):
-    x, dy, k = _inputs(shape)
-    x, dy = torch.from_numpy(x).to(cuda_device), torch.from_numpy(dy).to(cuda_device)
-    before = cw.stem_conv_wgrad.launches
-    got = cw.stem_conv_wgrad(x, dy, kernel=k)
-    want = cw.stem_conv_wgrad_plain(x, dy, k)
-    torch.cuda.synchronize()
-    assert cw.stem_conv_wgrad.launches == before + 1
-    assert rel_max(got.cpu().numpy(), want.cpu().numpy()) < REL_TOL

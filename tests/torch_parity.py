@@ -2,7 +2,8 @@
 
 Inputs are made with numpy from a seed and handed to both segtpu (NHWC, JAX
 on the CPU) and segtpu_torch (NCHW, torch on the CPU); weights go from
-segtpu's variables to the port through ``pspnet_state_dict_from_segtpu``.
+segtpu's variables to the port through ``pspnet_state_dict_from_segtpu`` and
+``upernet_state_dict_from_segtpu``.
 """
 
 from __future__ import annotations
@@ -14,8 +15,11 @@ import numpy as np
 import torch
 
 from segtpu.models.pspnet import PSPNet as SegtpuPSPNet
+from segtpu.models.upernet import UperNet as SegtpuUperNet
 from segtpu_torch.models.pspnet import PSPNet
-from segtpu_torch.utils.weight_convert import pspnet_state_dict_from_segtpu
+from segtpu_torch.models.upernet import UperNet
+from segtpu_torch.utils.weight_convert import (pspnet_state_dict_from_segtpu,
+                                               upernet_state_dict_from_segtpu)
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:
@@ -52,12 +56,9 @@ def _perturb_bn(params, stats, rng):
             flax.traverse_util.unflatten_dict(flat_s))
 
 
-def segtpu_pspnet(backbone: str, num_classes: int, hw: int, seed: int = 0,
-                  pallas_stem_wgrad: bool = False):
-    """(segtpu PSPNet, params, batch_stats) as numpy trees, with BN moved
-    off its init."""
-    model = SegtpuPSPNet(num_classes=num_classes, backbone=backbone,
-                         pallas_stem_wgrad=pallas_stem_wgrad)
+def _init_segtpu(model, hw: int, seed: int):
+    """(model, params, batch_stats) as numpy trees, with BN moved off its
+    init."""
     key = jax.random.PRNGKey(seed)
     variables = jax.jit(lambda k, x: model.init(
         {"params": k, "dropout": k}, x, train=False))(
@@ -66,6 +67,26 @@ def segtpu_pspnet(backbone: str, num_classes: int, hw: int, seed: int = 0,
     params, stats = _perturb_bn(variables["params"], variables["batch_stats"],
                                 np.random.default_rng(seed))
     return model, params, stats
+
+
+def segtpu_pspnet(backbone: str, num_classes: int, hw: int, seed: int = 0,
+                  pallas_stem_wgrad: bool = False):
+    """(segtpu PSPNet, params, batch_stats), see :func:`_init_segtpu`."""
+    return _init_segtpu(SegtpuPSPNet(num_classes=num_classes, backbone=backbone,
+                                     pallas_stem_wgrad=pallas_stem_wgrad), hw, seed)
+
+
+def segtpu_upernet(backbone: str, num_classes: int, hw: int, fpn_out: int,
+                   seed: int = 0):
+    """(segtpu UperNet, params, batch_stats), see :func:`_init_segtpu`."""
+    return _init_segtpu(SegtpuUperNet(num_classes=num_classes, backbone=backbone,
+                                      fpn_out=fpn_out), hw, seed)
+
+
+def port_upernet(params, stats, backbone: str, num_classes: int, fpn_out: int) -> UperNet:
+    model = UperNet(num_classes, backbone=backbone, fpn_out=fpn_out)
+    model.load_state_dict(upernet_state_dict_from_segtpu(params, stats), strict=True)
+    return model
 
 
 def port_pspnet(params, stats, backbone: str, num_classes: int, **kwargs) -> PSPNet:
