@@ -21,6 +21,9 @@ Phases, each announced on its own line:
    function (timed only as a yardstick) and the bound (bytes or operations
    over the card's peak rate), for the stem kernel at its main-path shape
    and for both flat-row kernels at PSPNet's stem_conv2 and UperNet's head;
+   the flat wgrad kernel also at the three other full-width layers (kernel,
+   library and bound), with its launch plan (o tile, splits, blocks per SM,
+   shared memory) at each;
 6. PSPNet main path: ``segtpu_torch.train.main`` trains PSPNet-ResNet50 (19
    classes, 769x769 crops, batch 8, bf16 autocast, stem weight gradient
    through the kernel) for a few steps plus a validation pass, with every
@@ -512,7 +515,7 @@ def main():
                   "bound_by": bound_by, "library_ms": library_ms}
 
     flat_times = {"flat_conv_wgrad": [], "flat_conv_dgrad": []}
-    for case in (STEM_CONV2, UPERNET_HEAD):
+    for case, layer in FLAT_FULL_SHAPES.items():
         n, h, w, c, o, k, p, d = case
         x, dy, wk = flat_inputs(case, 300, dev)
         wb = wk.bfloat16()
@@ -520,6 +523,12 @@ def main():
         w_oihw = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         flops = 2 * n * h * w * k * k * c * o
         rows = n * h * w
+        # the plain versions (and dgrad) are timed at the two shapes they
+        # always were; wgrad at all five
+        both = case in (STEM_CONV2, UPERNET_HEAD)
+        plan, per_sm, smem = fc.wgrad_launch_plan(x.shape, o, (k, k), d, dev)
+        print(f"flat_conv_wgrad launch at {case} ({layer}): {plan}, {per_sm} blocks "
+              f"per SM, {smem} bytes of shared memory a block", flush=True)
         runs = {
             "flat_conv_wgrad": (
                 lambda: fc.flat_conv_wgrad(x, dy, (k, k), p, d),
@@ -537,19 +546,24 @@ def main():
                 "torch.nn.grad.conv2d_input (cuDNN, bf16 channels_last)"),
         }
         for name, (kern, plain, library, nbytes, lib_name) in runs.items():
+            if name == "flat_conv_dgrad" and not both:
+                continue
             t_kernel = cuda_ms(kern, iters=20)
-            t_plain = cuda_ms(plain, iters=3, warmup=1)
+            t_plain = cuda_ms(plain, iters=3, warmup=1) if both else None
             t_library = cuda_ms(library, iters=20)
             b_ms, b_by = bound(nbytes, flops)
-            print(f"{name} at {case} ({FLAT_FULL_SHAPES[case]}): kernel "
-                  f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, library ({lib_name}) "
-                  f"{t_library:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-                  f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]",
-                  flush=True)
-            flat_times[name].append({
-                "layer": FLAT_FULL_SHAPES[case], "shape": list(case),
-                "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": t_library})
+            plain_txt = f"{t_plain:.4f} ms" if both else "not timed"
+            print(f"{name} at {case} ({layer}): kernel {t_kernel:.4f} ms, plain "
+                  f"{plain_txt}, library ({lib_name}) {t_library:.4f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP) [{card}]", flush=True)
+            entry = {"layer": layer, "shape": list(case), "ms": t_kernel,
+                     "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": t_library}
+            if name == "flat_conv_wgrad":
+                entry.update(tile_o=plan.tile_o, splits=plan.splits,
+                             blocks_per_sm=per_sm, smem_bytes=smem)
+            flat_times[name].append(entry)
         del x, dy, wk, wb, x_nchw, dy_nchw, w_oihw, runs
         torch.cuda.empty_cache()
 

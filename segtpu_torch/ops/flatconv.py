@@ -25,15 +25,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 _LIB_NAME = "flat_conv"
-# The wgrad partial buffer holds splits * kh*kw*C*O floats; it stays under
-# this many (64 MiB), and a dW larger than that is refused.
+# The wgrad partial buffer holds splits * kh*kw*C*O floats; the plan keeps
+# it under this many (64 MiB). A dW too large for two splits is written by
+# one split directly, with no partial buffer.
 MAX_PARTIAL_FLOATS = 1 << 24
+WGRAD_CHUNK = 64  # dy rows the wgrad kernel stages at a time
 _INT_MAX = 2**31 - 1
 
 
@@ -70,10 +72,6 @@ def _check_wgrad(x, dy, kernel_hw, padding, dilation):
         raise ValueError(f"flat_conv_wgrad: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} differ in N, H or W")
     _check("flat_conv_wgrad", x, dy)
-    c, o = x.shape[-1], dy.shape[-1]
-    if kh * kw * c * o > MAX_PARTIAL_FLOATS:
-        raise ValueError(f"flat_conv_wgrad: dW of {kh}x{kw}x{c}x{o} is past the "
-                         f"kernel's {MAX_PARTIAL_FLOATS} floats")
     return kh, kw
 
 
@@ -131,30 +129,82 @@ def _lib():
     from segtpu_torch.ops import build
 
     lib = build.load(_LIB_NAME)
-    lib.flat_conv_tile.restype = ctypes.c_int
-    lib.flat_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    lib.flat_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                                     + [ctypes.c_void_p])
     lib.flat_conv_wgrad.restype = ctypes.c_int
+    lib.flat_conv_wgrad_occupancy.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.flat_conv_wgrad_occupancy.restype = ctypes.c_int
     lib.flat_conv_dgrad.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                                     + [ctypes.c_void_p])
     lib.flat_conv_dgrad.restype = ctypes.c_int
     return lib
 
 
-# blocks of the wgrad kernel resident on one SM (128 threads of 128
-# registers each; 4 x 16K of the SM's 64K registers)
-_WGRAD_BLOCKS_PER_SM = 4
+WGRAD_TILE_C = 64  # c tile of the wgrad kernel: the M of one warpgroup product
 
 
-def wgrad_plan(rows: int, taps: int, c: int, o: int, tile: int, sms: int):
-    """(splits, rows per split) of a wgrad launch: as many blocks as fit on
-    the card at once, and no more, so that no second wave of a few blocks
-    doubles the time; the partial buffer under :data:`MAX_PARTIAL_FLOATS`."""
-    tiles = taps * math.ceil(c / tile) * math.ceil(o / tile)
-    splits = max(1, min(_WGRAD_BLOCKS_PER_SM * sms // tiles,
-                        MAX_PARTIAL_FLOATS // (taps * c * o), rows))
-    rows_per_split = math.ceil(rows / splits)
-    return math.ceil(rows / rows_per_split), rows_per_split
+class WgradPlan(NamedTuple):
+    """Launch of the wgrad kernel: a block owns ``taps`` taps of one tap row
+    and a :data:`WGRAD_TILE_C` x ``tile_o`` tile of their dW; ``splits``
+    blocks share each tile, split s taking the chunks of :data:`WGRAD_CHUNK`
+    rows s, s + splits, s + 2 splits, ..."""
+    tile_o: int
+    taps: int
+    splits: int
+
+
+def wgrad_tiling(kw: int, o: int, dilation: int) -> Tuple[int, int]:
+    """(tile_o, taps) of the wgrad kernel: a narrow o tile of 24 or 32 for
+    O <= 32, else 64; up to three taps of a tap row a block, one when their x
+    window would pass 64 + 128 rows."""
+    taps = min(kw, 3)
+    if (taps - 1) * dilation > 128:
+        taps = 1
+    return (24 if o <= 24 else 32 if o <= 32 else 64), taps
+
+
+def wgrad_plan(rows: int, kh: int, kw: int, c: int, o: int, dilation: int, sms: int,
+               blocks_per_sm: int, tile_o=None) -> WgradPlan:
+    """The wgrad launch: as many blocks as fit on the card at once
+    (``blocks_per_sm``, the kernel's own occupancy) and no more, so that no
+    second wave of a few blocks doubles the time; no more splits than
+    chunks; the partial buffer under :data:`MAX_PARTIAL_FLOATS`, or none
+    (one split). ``tile_o`` overrides the tiling's o tile."""
+    natural, taps = wgrad_tiling(kw, o, dilation)
+    tile_o = tile_o or natural
+    tiles = (kh * math.ceil(kw / taps) * math.ceil(c / WGRAD_TILE_C)
+             * math.ceil(o / tile_o))
+    splits = max(1, min(blocks_per_sm * sms // tiles,
+                        MAX_PARTIAL_FLOATS // (kh * kw * c * o),
+                        math.ceil(rows / WGRAD_CHUNK), 65535))
+    return WgradPlan(tile_o, taps, splits)
+
+
+def wgrad_occupancy(lib, o: int, dilation: int, tile_o: int, taps: int) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of the wgrad
+    kernel of ``lib`` launched with this o tile and taps, as the CUDA runtime
+    reports it on the current card."""
+    smem = ctypes.c_int(0)
+    blocks = lib.flat_conv_wgrad_occupancy(o, dilation, tile_o, taps, ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError(f"flat_conv_wgrad: no block fits on an SM (CUDA error "
+                           f"{-blocks}, {smem.value} bytes of shared memory)")
+    return blocks, smem.value
+
+
+def wgrad_launch_plan(x_shape, o: int, kernel_hw, dilation: int,
+                      device) -> Tuple[WgradPlan, int, int]:
+    """(plan, blocks per SM, shared memory bytes per block) of the wgrad
+    launch :func:`flat_conv_wgrad` makes for NHWC ``x_shape`` and O channels
+    on the CUDA ``device``."""
+    n, h, w, c = x_shape
+    kh, kw = kernel_hw
+    tile_o, taps = wgrad_tiling(kw, o, dilation)
+    with torch.cuda.device(device):
+        blocks, smem = wgrad_occupancy(_lib(), o, dilation, tile_o, taps)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return wgrad_plan(n * h * w, kh, kw, c, o, dilation, sms, blocks), blocks, smem
 
 
 def _dense_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -195,18 +245,16 @@ def flat_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel_hw=(3, 3),
         lib = _lib()
         (xb, cx), (dyb, cdy) = _dense_bf16(x), _dense_bf16(dy)
         flat_conv_wgrad.copies += cx + cdy
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits, rows_per_split = wgrad_plan(n * h * w, kh * kw, c, o,
-                                            lib.flat_conv_tile(), sms)
+        plan, _, _ = wgrad_launch_plan(x.shape, o, (kh, kw), dilation, dev)
         out = torch.empty((kh, kw, c, o), dtype=torch.float32, device=dev)
         partial = out
-        if splits > 1:
-            partial = torch.empty((splits, kh, kw, c, o), dtype=torch.float32,
+        if plan.splits > 1:
+            partial = torch.empty((plan.splits, kh, kw, c, o), dtype=torch.float32,
                                   device=dev)
         err = lib.flat_conv_wgrad(
             xb.data_ptr(), dyb.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n, h, w, c, o, kh, kw, padding, dilation, splits, rows_per_split,
-            torch.cuda.current_stream(dev).cuda_stream)
+            n, h, w, c, o, kh, kw, padding, dilation, plan.tile_o, plan.taps,
+            plan.splits, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flat_conv_wgrad kernel launch failed: CUDA error {err}")
         flat_conv_wgrad.launches += 1

@@ -87,6 +87,32 @@ def test_flat_kernels_match_plain(i, cuda_device):
     assert _rel_max(got_d, fc.flat_conv_dgrad_plain(dy, wk, (k, k), p, d)) <= DGRAD_TOL
 
 
+# flat-row wgrad cases that reach each path of the kernel: n, h, w, c, o, k, p, d
+WGRAD_CASES = [
+    (2, 17, 29, 5, 19, 3, 1, 1),      # C, O not multiples of 8: scalar x, dy span
+    (2, 13, 11, 16, 24, 3, 4, 4),     # dilation 4: the x window crosses images
+    (3, 19, 23, 64, 64, 3, 1, 1),     # 1311 rows: a ragged chunk, splits mid-row
+    (1, 9, 9, 1536, 1536, 3, 1, 1),   # dW past 2**24 floats: one split, no partial
+    (2, 15, 15, 32, 45, 3, 1, 1),     # dy span under the 64-wide o tile
+    (1, 15, 17, 16, 70, 3, 1, 1),     # O past the tile, not a multiple of 8: scalar dy
+    (1, 16, 16, 16, 16, 7, 3, 1),     # 7x7: tap groups of 3, 3 and 1
+    (1, 10, 12, 8, 8, 3, 80, 80),     # window past 64 + 128 rows: one tap a block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGRAD_CASES)
+def test_flat_wgrad_kernel_matches_plain(case, cuda_device):
+    n, h, w, c, o, k, p, d = case
+    x, dy, _ = _flat_inputs(case, sum(case), cuda_device)
+    launches = fc.flat_conv_wgrad.launches
+    got = fc.flat_conv_wgrad(x, dy, (k, k), p, d)
+    torch.cuda.synchronize()
+    assert fc.flat_conv_wgrad.launches == launches + 1
+    assert got.shape == (k, k, c, o) and got.dtype == torch.float32
+    assert _rel_max(got, fc.flat_conv_wgrad_plain(x, dy, (k, k), p, d)) < WGRAD_TOL
+
+
 @pytest.mark.cuda
 def test_flat_kernels_ignore_nan_outside_the_image(cuda_device):
     """Select, not multiply: NaN in the rows just before and after x and dy

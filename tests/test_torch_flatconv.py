@@ -100,8 +100,6 @@ def _bad(kind):
         "spatial_mismatch": (wgrad, (x, dy[:, :8], (3, 3), 1, 1)),
         "weight_shape": (dgrad, (dy, w[:, :, :, :8], (3, 3), 1, 1)),
         "kernel_vs_weight": (dgrad, (dy, w, (1, 1), 0, 1)),
-        "past_the_partial_bound": (wgrad, (torch.zeros(1, 3, 3, 2048),
-                                           torch.zeros(1, 3, 3, 2048), (3, 3), 1, 1)),
         "groups": (fc.flat_conv, (torch.zeros(1, 8, 9, 9), torch.zeros(16, 4, 3, 3),
                                   (3, 3), 1, 1)),
         "conv_kernel_vs_weight": (fc.flat_conv, (torch.zeros(1, 8, 9, 9),
@@ -112,23 +110,49 @@ def _bad(kind):
 @pytest.mark.parametrize("kind", [
     "not_same_size", "dilation_pad", "non_square", "ndim", "int_dtype",
     "spatial_mismatch", "weight_shape", "kernel_vs_weight",
-    "past_the_partial_bound", "groups", "conv_kernel_vs_weight"])
+    "groups", "conv_kernel_vs_weight"])
 def test_wrappers_reject_what_the_kernels_do_not_take(kind):
     fn, args = _bad(kind)
     with pytest.raises((ValueError, TypeError)):
         fn(*args)
 
 
+def test_wgrad_past_the_old_partial_bound_matches_segtpu():
+    """A dW of more than 2**24 floats (3x3x1400x1400), which the kernel once
+    refused: the wrapper computes it, as segtpu does, and the plan runs it as
+    one split with no partial buffer."""
+    n, h, w, c, o, k, p, d = 1, 2, 2, 1400, 1400, 3, 1, 1
+    assert k * k * c * o > fc.MAX_PARTIAL_FLOATS
+    x, dy, _ = _inputs((n, h, w, c, o, k, p, d), 11)
+    want = np.asarray(seg_fc.flat_conv_wgrad(
+        jnp.asarray(x), jnp.asarray(dy), kernel_hw=(k, k), padding=p,
+        dilation=d, interpret=True))
+    got = fc.flat_conv_wgrad(torch.from_numpy(x), torch.from_numpy(dy), (k, k), p, d)
+    assert got.shape == (k, k, c, o) and got.dtype == torch.float32
+    assert rel_max(got.numpy(), want) < WGRAD_TOL
+    assert fc.wgrad_plan(n * h * w, k, k, c, o, d, sms=132, blocks_per_sm=3).splits == 1
+
+
 @pytest.mark.parametrize("shape", [
-    (8, 385, 385, 64, 64, 3), (8, 385, 385, 64, 128, 3), (8, 97, 97, 512, 512, 3),
-    (8, 193, 193, 256, 19, 3), (8, 193, 193, 256, 256, 3), (1, 25, 25, 512, 19, 3),
-    (3, 15, 15, 24, 8, 5)])
+    (8, 385, 385, 64, 64, 3, 1), (8, 385, 385, 64, 128, 3, 1), (8, 97, 97, 512, 512, 3, 4),
+    (8, 193, 193, 256, 19, 3, 1), (8, 193, 193, 256, 256, 3, 1), (1, 25, 25, 512, 19, 3, 1),
+    (3, 15, 15, 24, 8, 5, 1), (1, 9, 9, 1536, 1536, 3, 1)])
 def test_wgrad_plan_covers_every_row_once_and_bounds_the_partials(shape):
-    n, h, w, c, o, k = shape
+    n, h, w, c, o, k, d = shape
     rows = n * h * w
-    splits, per = fc.wgrad_plan(rows, k * k, c, o, tile=64, sms=132)
-    assert splits >= 1 and (splits - 1) * per < rows <= splits * per
-    assert splits * k * k * c * o <= fc.MAX_PARTIAL_FLOATS
+    for blocks_per_sm in (1, 3, 4):
+        plan = fc.wgrad_plan(rows, k, k, c, o, d, sms=132, blocks_per_sm=blocks_per_sm)
+        # split s takes chunks s, s + splits, ...: every chunk, hence every
+        # row, once; each split starts at a multiple of the chunk
+        chunks = -(-rows // fc.WGRAD_CHUNK)
+        taken = [q for s in range(plan.splits) for q in range(s, chunks, plan.splits)]
+        assert 1 <= plan.splits <= chunks and sorted(taken) == list(range(chunks))
+        assert plan.splits == 1 or plan.splits * k * k * c * o <= fc.MAX_PARTIAL_FLOATS
+        assert (plan.tile_o <= 32) == (o <= 32)  # the narrow o tile
+        assert o > 32 or plan.tile_o >= o  # ... covers O
+        assert plan.taps == min(k, 3)
+        tiles = k * -(-k // plan.taps) * -(-c // fc.WGRAD_TILE_C) * -(-o // plan.tile_o)
+        assert plan.splits == 1 or tiles * plan.splits <= blocks_per_sm * 132
 
 
 def _loss_grads_torch(x, wk, k, p, d, conv):

@@ -1,5 +1,6 @@
-"""The port stands alone: segtpu_torch and chip_smoke.py import no JAX, no
-flax or optax and nothing of segtpu, and cv2/PIL nowhere at module scope."""
+"""The port stands alone: segtpu_torch, chip_smoke.py and scripts/torch_*.py
+import no JAX, no flax or optax and nothing of segtpu, and cv2/PIL nowhere at
+module scope."""
 
 import ast
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-SOURCES = sorted((REPO / "segtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted((REPO / "segtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "scripts").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "segtpu")
 NOT_AT_MODULE_SCOPE = ("cv2", "PIL")
 
