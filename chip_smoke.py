@@ -67,7 +67,10 @@ BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 MAIN_SHAPE = (8, 769, 769, 3, 64, 3)  # n, h, w, c, co, k of the stem conv
 TEST_SHAPES = [(2, 65, 65, 3, 64, 7), (1, 32, 48, 3, 16, 7),
                (2, 64, 64, 4, 32, 7), (2, 65, 65, 3, 64, 3),
-               (2, 33, 47, 5, 16, 3)]
+               (2, 33, 47, 5, 16, 3),
+               # shapes the kernel once refused (tap groups, padded o tiles)
+               (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3), (2, 33, 47, 5, 19, 3),
+               (1, 17, 17, 64, 64, 7)]
 # flat-row conv shapes (n, h, w, c, o, k, p, d): the cases of
 # tests/test_flatconv.py, then the full-width layers of the two models
 FLAT_TEST_CASES = [
@@ -523,12 +526,15 @@ def main():
         w_oihw = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         flops = 2 * n * h * w * k * k * c * o
         rows = n * h * w
-        # the plain versions (and dgrad) are timed at the two shapes they
-        # always were; wgrad at all five
+        # the plain versions are timed at the two shapes they always were;
+        # both kernels at all five
         both = case in (STEM_CONV2, UPERNET_HEAD)
         plan, per_sm, smem = fc.wgrad_launch_plan(x.shape, o, (k, k), d, dev)
         print(f"flat_conv_wgrad launch at {case} ({layer}): {plan}, {per_sm} blocks "
               f"per SM, {smem} bytes of shared memory a block", flush=True)
+        dplan, d_per_sm, d_smem = fc.dgrad_launch_plan(dy.shape, c, (k, k), d, dev)
+        print(f"flat_conv_dgrad launch at {case} ({layer}): {dplan}, {d_per_sm} blocks "
+              f"per SM, {d_smem} bytes of shared memory a block", flush=True)
         runs = {
             "flat_conv_wgrad": (
                 lambda: fc.flat_conv_wgrad(x, dy, (k, k), p, d),
@@ -546,8 +552,6 @@ def main():
                 "torch.nn.grad.conv2d_input (cuDNN, bf16 channels_last)"),
         }
         for name, (kern, plain, library, nbytes, lib_name) in runs.items():
-            if name == "flat_conv_dgrad" and not both:
-                continue
             t_kernel = cuda_ms(kern, iters=20)
             t_plain = cuda_ms(plain, iters=3, warmup=1) if both else None
             t_library = cuda_ms(library, iters=20)
@@ -563,6 +567,10 @@ def main():
             if name == "flat_conv_wgrad":
                 entry.update(tile_o=plan.tile_o, splits=plan.splits,
                              blocks_per_sm=per_sm, smem_bytes=smem)
+            else:
+                entry.update(tile_c=dplan.tile_c, ko=dplan.ko, taps=dplan.taps,
+                             resident=dplan.resident, blocks=dplan.blocks,
+                             blocks_per_sm=d_per_sm, smem_bytes=d_smem)
             flat_times[name].append(entry)
         del x, dy, wk, wb, x_nchw, dy_nchw, w_oihw, runs
         torch.cuda.empty_cache()

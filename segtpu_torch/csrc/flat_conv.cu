@@ -69,12 +69,45 @@
 // specialisation) that overlaps the copies with the products is the next
 // step.
 
-// dgrad (flat_dgrad): a block owns a tile of 64 rows x 64 c of dx and loops
-// over the taps and O in chunks of 32, staging each tap's rows of dy anew
-// (1.4 GB of loads at stem_conv2, mostly from L2); the masks are applied
-// while staging, by select, and rows off the image are never read. Each
-// thread's next global loads go to registers while the current tile's
-// products run. No reduction across blocks.
+// dgrad (flat_dgrad<N, KO>), warpgroup products (wgmma) fed by a cp.async
+// ring:
+//   * a block is two warpgroups (256 threads) on a tile of 128 dx rows x an
+//     N-wide c tile (N = 64, 128 or 256: all of C up to 256, so dy is read
+//     once per c tile); each warpgroup owns 64 rows and all N channels in
+//     ONE set of N/2 fp32 accumulators a thread, into which every tap and
+//     o chunk sums. The grid is one wave (the wrapper sizes it from the
+//     kernel's own occupancy, flat_conv_dgrad_occupancy): block b walks
+//     the tiles b, b + blocks, ... and its ring runs on from one tile into
+//     the next, so the next tile's first copies overlap this tile's
+//     epilogue;
+//   * K = taps x O. A stage is one tap row a, its taps (all kw of them
+//     where the window and the ring allow) and one o chunk of KO (32 or
+//     64): ONE dy window of 128 + (taps - 1) * d rows, as tap b reads rows
+//     r - off(a, b) and neighbouring taps are the same window shifted by d
+//     rows, which costs ldmatrix nothing. dy crosses from L2 kh times (0.46
+//     GB at stem_conv2), not kh * kw times (1.4 GB);
+//   * products: wgmma.m64nNk16 (N <= 128; two of them at N = 256), M =
+//     rows, N = c, K = o. A = dy comes from the window by ldmatrix into
+//     registers, where the mask is applied by select: an A register holds
+//     two o of one row, so a row whose partner pixel is off the image
+//     zeroes whole registers. B = W is read by the tensor cores from shared
+//     memory, K-major (o contiguous, as the weight lies) in the 128- or
+//     64-byte swizzle. Where there is one c tile and the whole weight fits
+//     beside the ring (stem_conv2, stem_conv3, the UperNet head), it is
+//     staged once per block and stays; otherwise each stage brings its taps'
+//     tiles. The wrapper pads the weight's O to a multiple of 8 with zeros;
+//   * staging: cp.async (16 bytes, .cg) into a ring of 3 slots, two stages
+//     ahead. Rows outside [0, N*H*W) are zero-filled through the copy's
+//     source size 0, so NaN just outside dy cannot reach dx. O not a
+//     multiple of 8 (the head's 19): the window's rows are one contiguous
+//     span, copied from the 16-byte boundary at or before it and laid out
+//     into the window in one shared-memory pass, zero past O (K padded to
+//     32); O past one chunk and not a multiple of 8 takes 2-byte loads;
+//   * epilogue: each warp rounds its 16 rows to bf16 into its own tile of
+//     shared memory, 64 channels at a time, and writes whole 16-byte pieces
+//     of dx rows, 8 lanes to a row's 128 bytes (2-byte stores where C is
+//     not a multiple of 8). Rows past the end and channels past C are not
+//     written. No reduction across blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,12 +115,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps, 2 x 2 over the 64 x 64 tile
-constexpr int kTile = 64;      // block tile: M = N = 64
-constexpr int kBK = 32;        // dgrad: depth of one staged chunk
-// dgrad's shared-memory row stride, in bf16: 80 bytes, so that the eight
-// 16-byte rows an ldmatrix reads fall into distinct banks
-constexpr int kLd = kBK + 8;
+constexpr int kThreads = 128;  // wgrad: one warpgroup
 constexpr int kReduceThreads = 256;
 
 struct Geom {
@@ -120,15 +148,6 @@ __device__ __forceinline__ Pack8 load8(const unsigned short* __restrict__ src,
   return p;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Four 8x8 bf16 matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 and receives, in register i, elements [g][2t]
 // and [g][2t+1] of matrix i (g = l / 4, t = l % 4).
@@ -138,54 +157,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const unsigned short* 
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// acc (the warp's 32 x 32 tile at (wm, wn)) += A[64][kBK] * B[64][kBK]^T,
-// both k-contiguous in shared memory (row stride kLd). Fragment layout of
-// m16n8k16: lane = 4 g + t holds A rows g and g+8 at k = 2t, 2t+1, 2t+8,
-// 2t+9, B column g at the same k, and C rows g and g+8 at columns 2t, 2t+1.
-__device__ __forceinline__ void tile_mma(const unsigned short* As,
-                                         const unsigned short* Bs,
-                                         float (&acc)[2][4][4], int wm, int wn,
-                                         int lane) {
-  const int mat = lane >> 3;
-  const int mrow = lane & 7;
-#pragma unroll
-  for (int k0 = 0; k0 < kBK; k0 += 16) {
-    uint32_t a[2][4];
-    uint32_t b[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-      ldsm_x4(a[i], As + (wm * 32 + i * 16 + mrow + (mat & 1) * 8) * kLd + k0 +
-                        (mat >> 1) * 8);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-      uint32_t t[4];
-      ldsm_x4(t, Bs + (wn * 32 + jj * 16 + mrow + (mat >> 1) * 8) * kLd + k0 +
-                     (mat & 1) * 8);
-      b[2 * jj][0] = t[0];
-      b[2 * jj][1] = t[1];
-      b[2 * jj + 1][0] = t[2];
-      b[2 * jj + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-  }
-}
-
-// Row and column, within the 64 x 64 block tile, of accumulator element
-// acc[i][j][e] of this lane.
-__device__ __forceinline__ int acc_row(int wm, int i, int e, int lane) {
-  return wm * 32 + i * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
-}
-__device__ __forceinline__ int acc_col(int wn, int j, int e, int lane) {
-  return wn * 32 + j * 8 + 2 * (lane & 3) + (e & 1);
 }
 
 // Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
@@ -601,96 +572,409 @@ flat_wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
   out[e] = v;
 }
 
-// grid: x = (row tile, c tile; c fastest). Tile: M = rows, N = c, K = taps x
-// O. A[r][o] = dy[r - off, o] (masked by the output row's h and w), B[c][o]
-// = W[tap, c, o]; both are k-contiguous in global memory already.
-__global__ void __launch_bounds__(kThreads)
+// ---- dgrad ----
+constexpr int kDThreads = 256;  // two consumer warpgroups
+constexpr int kDM = 128;        // dx rows of a block tile: 64 a warpgroup
+constexpr int kDStages = 3;     // depth of the cp.async ring
+constexpr int kDSubTaps = 3;    // taps whose A fragments a thread holds at once
+constexpr int kDEpLd = 72;      // epilogue row stride: 64 c + 8, 144 bytes
+constexpr int kDEpBytes = (kDThreads / 32) * 16 * kDEpLd * 2;  // 16 rows a warp
+
+// Products with B K-major (o contiguous), read by descriptor: D (64 x N,
+// fp32) = A (64 x 16, registers) * B (16 x N, shared memory) + D, or
+// without "+ D" where accumulate is 0; imm-trans-b 0.
+__device__ __forceinline__ void wgmma_k_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_k_n128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <int NW>
+__device__ __forceinline__ void wgmma_k(float (&d)[NW / 2], const uint32_t (&a)[4],
+                                        uint64_t desc, int accumulate) {
+  if constexpr (NW == 64) wgmma_k_n64(d, a, desc, accumulate);
+  else wgmma_k_n128(d, a, desc, accumulate);
+}
+
+// Descriptor of a K-major weight tile at shared address `addr`: rows of KO
+// bf16 (one c each) in the 128-byte (KO = 64) or 64-byte (KO = 32) swizzle,
+// laid out by dy_at<KO>; the base is 1024-byte aligned. Leading byte offset
+// unused (1); stride byte offset: 8 rows.
+template <int KO>
+__device__ __forceinline__ uint64_t wk_desc(uint32_t addr) {
+  constexpr uint64_t sbo = KO * 16, layout = KO == 64 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (sbo >> 4) << 32 |
+         layout << 62;
+}
+
+struct DgradArgs {
+  Geom g;
+  int ow;       // o stride of the weight: O rounded up to a multiple of 8
+  int taps;     // taps of a tap row one stage holds
+  int groups;   // ceil(kw / taps): stages per tap row and o chunk
+  int win;      // window rows a slot holds: kDM + (taps - 1) * dil
+  int chunks;   // ceil(O / KO)
+  int dy_mode;  // WStage: kVec, kScalar or kSpan
+  int resident; // the weight of the one c tile stays in shared memory
+  int ctiles;   // ceil(C / N)
+  int tiles;    // row tiles x c tiles
+};
+
+// Shared-memory layout of flat_dgrad<N, KO>, in bytes from a 1024-byte
+// aligned base: the weight tiles (N rows x KO, dy_at<KO>; all kh*kw*chunks
+// of them when resident, else kDStages x taps), then kDStages dy windows
+// (win rows x (KO + 8) bf16: 144 or 80 bytes, so the eight rows an
+// ldmatrix reads hit distinct banks), then for a dy span kDStages raw
+// spans, then each warp's epilogue tile. `bytes` includes the alignment
+// slack. Mirrored by dgrad_smem_bytes in segtpu_torch/ops/flatconv.py.
+struct DgradSmem {
+  int win, raw, span, ep, bytes;
+};
+
+__host__ __device__ inline DgradSmem dgrad_smem(int tile_c, int ko, int taps, int dil,
+                                                int o, int kh, int kw, bool resident) {
+  DgradSmem s;
+  const int chunks = (o + ko - 1) / ko;
+  const int win = kDM + (taps - 1) * dil;
+  const bool span = o % 8 != 0 && o <= ko;
+  s.win = (resident ? kh * kw * chunks : kDStages * taps) * tile_c * ko * 2;
+  s.raw = s.win + kDStages * win * (ko + 8) * 2;
+  s.span = span ? (win * o * 2 + 15) / 16 * 16 + 16 : 0;
+  s.ep = s.raw + kDStages * s.span;
+  s.bytes = s.ep + kDEpBytes + 1024;
+  return s;
+}
+
+// One stage of a block: tap row a, taps b0 .. b0+nt-1, o chunk ch, of the
+// block's tile of rows r0 .. r0+kDM-1 and channels c0 .. c0+N-1.
+struct DStage {
+  int r0, c0, a, b0, nt, ch;
+  bool first, last;
+};
+
+// grid: x = blocks, each walking the tiles t = blockIdx.x, + gridDim.x, ...
+// (tile t: row tile t / ctiles, c tile t % ctiles; c fastest). Two
+// warpgroups: warpgroup v owns dx rows 64v .. 64v+63 of the tile and all N
+// channels, in one set of N / 2 fp32 accumulators a thread. Products: M =
+// rows, N = c, K = taps x o; A = dy from the window by ldmatrix into
+// registers (masked there), B = W from shared memory by descriptor.
+template <int N, int KO>
+__global__ void __launch_bounds__(kDThreads, 1)
 flat_dgrad(const unsigned short* __restrict__ dy,
            const unsigned short* __restrict__ wt,
-           unsigned short* __restrict__ dx, Geom g) {
-  __shared__ __align__(16) unsigned short As[kTile * kLd];
-  __shared__ __align__(16) unsigned short Bs[kTile * kLd];
+           unsigned short* __restrict__ dx, DgradArgs args) {
+  constexpr int NW = N < 128 ? N : 128;  // width of one wgmma
+  constexpr int NH = N / NW;             // wgmmas per tap and k step
+  constexpr int KP = KO / 8;             // 16-byte pieces of a staged row
+  constexpr int WLD = KO + 8;            // window row stride, in bf16
+  constexpr int TILE = N * KO;           // bf16 of one weight tile
+  extern __shared__ uint4 dgrad_smem_raw[];
+  const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(dgrad_smem_raw));
+  unsigned char* base = reinterpret_cast<unsigned char*>(dgrad_smem_raw) +
+                        (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const Geom& g = args.g;
+  const bool span = args.dy_mode == kSpan;
+  const DgradSmem lay = dgrad_smem(N, KO, args.taps, g.dil, g.o, g.kh, g.kw, args.resident);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(base);
+  unsigned short* winsm = reinterpret_cast<unsigned short*>(base + lay.win);
+  unsigned char* rawsm = base + lay.raw;
 
-  const int ctiles = (g.c + kTile - 1) / kTile;
-  const int ct = blockIdx.x % ctiles;
-  const int r0 = (blockIdx.x / ctiles) * kTile;
-  const int c0 = ct * kTile;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mat = lane >> 3;  // which 8x8 matrix this lane addresses
+  const int mrow = lane & 7;  // which of its rows
+  const int rbase = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's 16 dx rows
+  const int per_tile = g.kh * args.groups * args.chunks;
+  const int nstages = (args.tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                      (int)gridDim.x * per_tile;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // Each thread stages the same two (row, group) chunks of A for every
-  // tap and chunk: 64 rows x 4 groups of 8, a warp covering 8 whole rows.
-  constexpr int kChunks = kTile * (kBK / 8) / kThreads;  // 2
-  int srow[kChunks], sgrp[kChunks], sh[kChunks], sw[kChunks];
-  bool sin[kChunks];
-#pragma unroll
-  for (int q = 0; q < kChunks; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    srow[q] = i / (kBK / 8);
-    sgrp[q] = i % (kBK / 8);
-    const int r = r0 + srow[q];
-    sin[q] = r < g.rows;
-    sh[q] = (r / g.w) % g.h;
-    sw[q] = r % g.w;
-  }
-
-  // Steps s = (tap, o chunk); the next step's global loads are in flight
-  // while the current step's products run.
-  const int ochunks = (g.o + kBK - 1) / kBK;
-  const int steps = g.kh * g.kw * ochunks;
-  Pack8 ar[kChunks], br[kChunks];
-  auto load = [&](int step) {
-    const int tap = step / ochunks;
-    const int o0 = (step % ochunks) * kBK;
-    const int dh = (tap / g.kw) * g.dil - g.pad;
-    const int dw = (tap % g.kw) * g.dil - g.pad;
-    const long long off = (long long)dh * g.w + dw;
-    const unsigned short* wtap = wt + (size_t)tap * g.c * g.o;
-#pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      const bool ok = sin[q] && sh[q] - dh >= 0 && sh[q] - dh < g.h &&
-                      sw[q] - dw >= 0 && sw[q] - dw < g.w;
-      ar[q] = load8(dy, (long long)(r0 + srow[q]) - off, o0 + 8 * sgrp[q], g.o, ok);
-      const int c = c0 + srow[q];
-      br[q] = load8(wtap, c, o0 + 8 * sgrp[q], g.o, c < g.c);
+  auto decode = [&](int q) {
+    DStage st;
+    const int t = blockIdx.x + q / per_tile * gridDim.x;
+    int s = q % per_tile;
+    st.first = s == 0;
+    st.last = s == per_tile - 1;
+    st.r0 = t / args.ctiles * kDM;
+    st.c0 = t % args.ctiles * N;
+    st.ch = s % args.chunks;
+    s /= args.chunks;
+    st.b0 = s % args.groups * args.taps;
+    st.a = s / args.groups;
+    st.nt = min(args.taps, g.kw - st.b0);
+    return st;
+  };
+  // first dy row of a stage's window: tap b reads rows r - off(a, b), so the
+  // window starts at the group's last tap and tap b sits (b0 + nt - 1 - b) *
+  // dil rows further in
+  auto window_start = [&](const DStage& st) {
+    return (long long)st.r0 - (long long)(st.a * g.dil - g.pad) * g.w + g.pad -
+           (long long)(st.b0 + st.nt - 1) * g.dil;
+  };
+  // the weight tile of tap (a, b), o chunk ch, c tile from c0 -> dst
+  auto stage_weight = [&](unsigned short* dst, int a, int b, int ch, int c0) {
+    const unsigned short* src = wt + (size_t)(a * g.kw + b) * g.c * args.ow;
+    for (int e = tid; e < N * KP; e += kDThreads) {
+      const int n = e / KP, p = e % KP;
+      const int c = c0 + n, o = ch * KO + 8 * p;
+      const bool ok = c < g.c && o < args.ow;
+      cp_async16(dst + dy_at<KO>(n, p), ok ? src + (size_t)c * args.ow + o : wt, ok ? 16 : 0);
     }
   };
-  load(0);
-  for (int step = 0; step < steps; ++step) {
-#pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      *reinterpret_cast<uint4*>(As + srow[q] * kLd + 8 * sgrp[q]) = ar[q].u;
-      *reinterpret_cast<uint4*>(Bs + srow[q] * kLd + 8 * sgrp[q]) = br[q].u;
-    }
-    __syncthreads();
-    if (step + 1 < steps) load(step + 1);
-    tile_mma(As, Bs, acc, wm, wn, lane);
-    __syncthreads();
-  }
 
-  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(dx);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + acc_row(wm, i, e, lane);
-        const int c = c0 + acc_col(wn, j, e, lane);
-        if (r < g.rows && c < g.c) {
-          out[(size_t)r * g.c + c] = __float2bfloat16_rn(acc[i][j][e]);
+  // Stage q of this block (its dy window, and its weight tiles unless they
+  // are resident) into ring slot q % kDStages; commit one cp.async group
+  // (empty past the end). Rows outside [0, rows) are zero-filled through the
+  // copy's source size 0 and never read.
+  auto stage = [&](int q) {
+#ifdef FLAT_DGRAD_SKIP_COPIES  // timing build of scripts/torch_dgrad_parts.py only
+    if (q >= kDStages - 1) {
+      cp_async_commit();
+      return;
+    }
+#endif
+    if (q < nstages) {
+      const DStage st = decode(q);
+      const int slot = q % kDStages;
+      const long long ws = window_start(st);
+      const int need = kDM + (st.nt - 1) * g.dil;
+      if (span) {
+        // rows [ws, ws + need) x all O channels as they lie, from the 16-byte
+        // boundary at or before them; pieces outside the tensor read nothing
+        const char* src = reinterpret_cast<const char*>(dy);
+        const long long at0 = (ws * g.o * 2) & ~15LL;
+        const long long end = (long long)g.rows * g.o * 2;
+        const int pieces = (int)(((ws + need) * g.o * 2 - at0 + 15) / 16);
+        unsigned char* dst = rawsm + slot * lay.span;
+        for (int e = tid; e < pieces; e += kDThreads) {
+          const long long at = at0 + 16LL * e;
+          const int nb = at < 0 ? 0 : (int)max(0LL, min(16LL, end - at));
+          cp_async16(dst + 16 * e, nb > 0 ? src + at : src, nb);
+        }
+      } else {
+        unsigned short* dst = winsm + slot * args.win * WLD;
+        for (int e = tid; e < need * KP; e += kDThreads) {
+          const int i = e / KP, p = e % KP;
+          const long long row = ws + i;
+          const int ch = st.ch * KO + 8 * p;
+          const bool ok = row >= 0 && row < g.rows && ch < g.o;
+          if (args.dy_mode == kVec) {
+            cp_async16(dst + i * WLD + 8 * p, ok ? dy + row * g.o + ch : dy, ok ? 16 : 0);
+          } else {
+            *reinterpret_cast<uint4*>(dst + i * WLD + 8 * p) = load8(dy, row, ch, g.o, ok).u;
+          }
         }
       }
+      if (!args.resident) {
+        for (int j = 0; j < st.nt; ++j) {
+          stage_weight(wsm + (slot * args.taps + j) * TILE, st.a, st.b0 + j, st.ch, st.c0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (args.resident) {  // the whole weight of the one c tile, once
+    for (int t = 0; t < g.kh * g.kw * args.chunks; ++t) {
+      stage_weight(wsm + t * TILE, t / args.chunks / g.kw, t / args.chunks % g.kw,
+                   t % args.chunks, 0);
+    }
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int q = 0; q < kDStages - 1; ++q) stage(q);
+
+  float acc[NH][NW / 2];  // set by each tile's first product
+#pragma unroll
+  for (int hn = 0; hn < NH; ++hn)
+#pragma unroll
+    for (int e = 0; e < NW / 2; ++e) acc[hn][e] = 0.f;
+  // image coordinates of this thread's two dx rows (rbase + g, + 8) of the
+  // current tile; a row past the end is never valid
+  int hlo = 0, wlo = 0, hhi = 0, whi = 0;
+  bool inlo = false, inhi = false;
+
+  for (int q = 0; q < nstages; ++q) {
+    cp_async_wait<kDStages - 2>();  // stage q has landed (this thread's copies)
+    fence_proxy_async();            // ... where the tensor cores read it
+    __syncthreads();                // everyone's copies; stage q-1 is done with
+    stage(q + kDStages - 1);        // into stage q-1's slot
+    const DStage st = decode(q);
+    const int slot = q % kDStages;
+    const unsigned short* win = winsm + slot * args.win * WLD;
+    if (span) {  // the raw span -> the window, zero past O
+      const int need = kDM + (st.nt - 1) * g.dil;
+      const long long ws = window_start(st);
+      const unsigned short* rs =
+          reinterpret_cast<const unsigned short*>(rawsm + slot * lay.span) +
+          ((ws * g.o * 2) & 15) / 2;
+      unsigned short* dst = winsm + slot * args.win * WLD;
+      for (int e = tid; e < need * KP; e += kDThreads) {
+        const int i = e / KP, p = e % KP;
+        Pack8 v;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int o = 8 * p + k;
+          v.s[k] = o < g.o ? rs[i * g.o + o] : 0;
+        }
+        *reinterpret_cast<uint4*>(dst + i * WLD + 8 * p) = v.u;
+      }
+      __syncthreads();
+    }
+    if (st.first) {
+      const int rlo = st.r0 + rbase + (lane >> 2), rhi = rlo + 8;
+      inlo = rlo < g.rows;
+      inhi = rhi < g.rows;
+      hlo = rlo / g.w % g.h;
+      wlo = rlo % g.w;
+      hhi = rhi / g.w % g.h;
+      whi = rhi % g.w;
+    }
+    const int dh = st.a * g.dil - g.pad;
+    const bool hlo_ok = inlo && hlo - dh >= 0 && hlo - dh < g.h;
+    const bool hhi_ok = inhi && hhi - dh >= 0 && hhi - dh < g.h;
+#ifdef FLAT_DGRAD_SKIP_PRODUCTS  // timing build of scripts/torch_dgrad_parts.py only
+    if (st.nt < 0)
+#endif
+    for (int j0 = 0; j0 < st.nt; j0 += kDSubTaps) {
+      // this warp's A = dy fragments of k step ks for taps j0 .. j0+2, masked
+      // by select: registers 0 and 2 hold row g, registers 1 and 3 row g + 8
+      auto load_a = [&](uint32_t (&f)[kDSubTaps][4], int ks) {
+#pragma unroll
+        for (int j = 0; j < kDSubTaps; ++j) {
+          if (j0 + j >= st.nt) break;
+          const int b = st.b0 + j0 + j;
+          const int shift = (st.b0 + st.nt - 1 - b) * g.dil;
+          // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+          ldsm_x4(f[j], win + (rbase + mrow + (mat & 1) * 8 + shift) * WLD + ks * 16 +
+                            (mat >> 1) * 8);
+          const int dw = b * g.dil - g.pad;
+          if (!(hlo_ok && wlo - dw >= 0 && wlo - dw < g.w)) f[j][0] = f[j][2] = 0u;
+          if (!(hhi_ok && whi - dw >= 0 && whi - dw < g.w)) f[j][1] = f[j][3] = 0u;
+        }
+      };
+      uint32_t af[2][kDSubTaps][4];
+      load_a(af[0], 0);
+#pragma unroll
+      for (int ks = 0; ks < KO / 16; ++ks) {
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kDSubTaps; ++j) {
+          if (j0 + j >= st.nt) break;
+          const int b = st.b0 + j0 + j;
+          const unsigned short* tile =
+              wsm + (args.resident ? (st.a * g.kw + b) * args.chunks + st.ch
+                                   : slot * args.taps + j0 + j) * TILE;
+          const uint32_t addr =
+              static_cast<uint32_t>(__cvta_generic_to_shared(tile)) + ks * 32;
+          // a tile's first product overwrites the accumulators: zeroing them
+          // by hand inside the pipeline would serialise the wgmma
+          const int accumulate = ks > 0 || j > 0 || j0 > 0 || !st.first;
+#pragma unroll
+          for (int hn = 0; hn < NH; ++hn) {
+            wgmma_k<NW>(acc[hn], af[ks & 1][j], wk_desc<KO>(addr + hn * NW * KO * 2),
+                        accumulate);
+          }
+        }
+        wgmma_commit();
+        if (ks + 1 < KO / 16) {
+          wgmma_wait<1>();  // the group before this one read the other A set
+          load_a(af[(ks + 1) & 1], ks + 1);
+        }
+      }
+      wgmma_wait<0>();
+    }
+
+    if (st.last) {
+      // Epilogue: each warp rounds its 16 rows to bf16 into its own tile of
+      // shared memory, 64 channels at a time, and writes them back as whole
+      // 16-byte pieces of dx rows (8 lanes to a row's 128 bytes).
+      unsigned short* ep =
+          reinterpret_cast<unsigned short*>(base + lay.ep) + warp * 16 * kDEpLd;
+#pragma unroll
+      for (int j = 0; j < N / 64; ++j) {
+        const int hn = 64 * j / NW, e0 = 64 * j % NW / 2;
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          // accumulator e0 + e: row g (+8 for e % 4 >= 2), column 8 (e / 4) + 2t
+          const int row = (lane >> 2) + ((e & 2) ? 8 : 0);
+          const int col = 8 * (e >> 2) + 2 * (lane & 3);
+          *reinterpret_cast<__nv_bfloat162*>(ep + row * kDEpLd + col) =
+              __floats2bfloat162_rn(acc[hn][e0 + e], acc[hn][e0 + e + 1]);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int piece = lane + 32 * m, row = piece >> 3, p = piece & 7;
+          const long long r = (long long)st.r0 + rbase + row;
+          const int c = st.c0 + 64 * j + 8 * p;
+          if (r < g.rows && c < g.c) {
+            const uint4 v = *reinterpret_cast<const uint4*>(ep + row * kDEpLd + 8 * p);
+            unsigned short* out = dx + r * g.c + c;
+            if ((g.c & 7) == 0) {
+              *reinterpret_cast<uint4*>(out) = v;
+            } else {
+              Pack8 pk;
+              pk.u = v;
+              for (int k = 0; k < 8 && c + k < g.c; ++k) out[k] = pk.s[k];
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 Geom make_geom(int n, int h, int w, int c, int o, int kh, int kw, int pad,
@@ -711,6 +995,25 @@ cudaError_t wgrad_dispatch(int tile_o, int taps, F&& f) {
     case 32: return many ? f(flat_wgrad<kWMaxTaps, 32>) : f(flat_wgrad<1, 32>);
     default: return many ? f(flat_wgrad<kWMaxTaps, 64>) : f(flat_wgrad<1, 64>);
   }
+}
+
+// f(flat_dgrad<N, KO>) for the c tile N and the o chunk KO, or
+// cudaErrorInvalidValue for a pair with no instance.
+template <typename F>
+cudaError_t dgrad_dispatch(int tile_c, int ko, F&& f) {
+  if (ko == 32) {
+    switch (tile_c) {
+      case 64: return f(flat_dgrad<64, 32>);
+      case 128: return f(flat_dgrad<128, 32>);
+      case 256: return f(flat_dgrad<256, 32>);
+    }
+  } else if (ko == 64) {
+    switch (tile_c) {
+      case 64: return f(flat_dgrad<64, 64>);
+      case 128: return f(flat_dgrad<128, 64>);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -789,18 +1092,69 @@ int flat_conv_wgrad_occupancy(int o, int dil, int tile_o, int taps, int* smem_by
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// dx (N, H, W, C) bf16 from bf16 dy (N, H, W, O) and W laid out (kh, kw, C,
-// O). Returns cudaGetLastError() after the launch.
+// Blocks of flat_dgrad resident on one SM for the launch flat_conv_dgrad
+// makes with these arguments (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// after the shared-memory attribute is set), or minus a CUDA error code.
+// Writes the dynamic shared memory per block to *smem_bytes.
+int flat_conv_dgrad_occupancy(int o, int kh, int kw, int dil, int tile_c, int ko,
+                              int taps, int resident, int* smem_bytes) {
+  if (taps < 1 || taps > kw) return -(int)cudaErrorInvalidValue;
+  const int bytes = dgrad_smem(tile_c, ko, taps, dil, o, kh, kw, resident != 0).bytes;
+  *smem_bytes = bytes;
+  int blocks = 0;
+  auto query = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDThreads, bytes);
+    }
+    return e;
+  };
+  const cudaError_t err = dgrad_dispatch(tile_c, ko, query);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// dx (N, H, W, C) bf16 from bf16 dy (N, H, W, O) and the weight laid out
+// (kh, kw, C, ow), ow = O rounded up to a multiple of 8 (zeros past O).
+// Launches flat_dgrad<tile_c, ko> on `blocks` blocks that walk the tiles
+// of 128 rows x tile_c channels; a stage holds `taps` taps of a tap row;
+// `resident` keeps the whole weight in shared memory (one c tile only).
+// dy, the weight and dx must be 16-byte aligned. Returns a CUDA error code:
+// that of a refused shared-memory size, or cudaGetLastError() after the
+// launch.
 int flat_conv_dgrad(const void* dy, const void* wt, void* dx, int n, int h,
-                    int w, int c, int o, int kh, int kw, int pad, int dil,
+                    int w, int c, int o, int ow, int kh, int kw, int pad, int dil,
+                    int tile_c, int ko, int taps, int resident, int blocks,
                     void* stream) {
-  const Geom g = make_geom(n, h, w, c, o, kh, kw, pad, dil);
-  const long long blocks =
-      (long long)((g.rows + kTile - 1) / kTile) * ((c + kTile - 1) / kTile);
-  flat_dgrad<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned short*>(dy), static_cast<const unsigned short*>(wt),
-      static_cast<unsigned short*>(dx), g);
-  return (int)cudaGetLastError();
+  DgradArgs a;
+  a.g = make_geom(n, h, w, c, o, kh, kw, pad, dil);
+  a.ow = ow;
+  a.taps = taps;
+  a.groups = taps > 0 ? (kw + taps - 1) / taps : 0;
+  a.win = kDM + (taps - 1) * dil;
+  a.chunks = ko > 0 ? (o + ko - 1) / ko : 0;
+  a.dy_mode = o % 8 == 0 ? kVec : (o <= ko ? kSpan : kScalar);
+  a.resident = resident;
+  a.ctiles = tile_c > 0 ? (c + tile_c - 1) / tile_c : 0;
+  const long long tiles = (long long)((a.g.rows + kDM - 1) / kDM) * a.ctiles;
+  if (taps < 1 || taps > kw || ow % 8 != 0 || ow < o || blocks < 1 || blocks > tiles ||
+      tiles > 0x7fffffffLL || (resident && a.ctiles != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.tiles = (int)tiles;
+  const int bytes = dgrad_smem(tile_c, ko, taps, dil, o, kh, kw, resident != 0).bytes;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* dyp = static_cast<const unsigned short*>(dy);
+  const auto* wp = static_cast<const unsigned short*>(wt);
+  auto* dxp = static_cast<unsigned short*>(dx);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<blocks, kDThreads, bytes, s>>>(dyp, wp, dxp, a);
+    return cudaGetLastError();
+  };
+  return (int)dgrad_dispatch(tile_c, ko, launch);
 }
 
 }  // extern "C"

@@ -20,16 +20,25 @@
 // Design. The TPU kernel's space-to-depth fold and tap concatenation were
 // there to fill a 128x128 MXU, and its accumulator relied on the TPU grid
 // running in order; neither carries over. Here:
-//   * each block owns a contiguous range of output rows (n, ho) and walks
-//     them in tiles of kTileW output pixels, staging the tile's dy (as
-//     fp32) and the k input rows it reads (as fp32, zero outside the image)
-//     in shared memory;
-//   * each thread owns 4 consecutive output channels of NT taps (kh, kw, c):
-//     NT x 4 fp32 accumulators in registers. Per pixel it reads one float4
-//     of dy and one x value per tap;
-//   * each block writes its partial dW into a (G, k*k*C, CO) fp32 scratch,
-//     and a second kernel sums the G partials in a fixed order. The result
-//     is deterministic, with no atomics.
+//   * the grid is (row blocks, tap groups, o tiles). A row block owns a
+//     contiguous range of output rows (n, ho) and walks them in tiles of
+//     kTileW output pixels, staging the tile's dy (as fp32) and the input
+//     rows its taps read (as fp32, zero outside the image) in shared memory;
+//   * a tap group is a box of taps: kr rows kh, kc columns kw and cs
+//     channels c (the launch plan, stem_wgrad_plan in
+//     segtpu_torch/ops/conv_wgrad.py, picks the box). It stages only that
+//     slice of x, so shared memory stays within the 48 KB a launch takes
+//     without opting in, whatever C and k are;
+//   * an o tile is co_tile output channels, co_tile a power of two from 4
+//     to kMaxCoTile (its quarter divides kThreads); lanes past CO are
+//     staged as zeros, computed and never written;
+//   * each thread owns 4 consecutive output channels of NT taps of its
+//     group (NT <= 16): NT x 4 fp32 accumulators in registers. Per pixel it
+//     reads one float4 of dy and one x value per tap;
+//   * each row block writes its partial dW into a (G, k*k*C, CO) fp32
+//     scratch, and a second kernel sums the G partials in a fixed order:
+//     deterministic, no atomics. The plan keeps G * k*k*C*CO under 2^24
+//     floats; with G = 1 the block writes dW directly and no sum runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,40 +47,57 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileW = 32;       // output pixels staged per tile
+constexpr int kMaxCoTile = 256;  // widest o tile: its dy tile is 32 KB
 constexpr int kReduceWarps = 8;  // warps that split the partials' G axis
+
+struct StemArgs {
+  int n, h, w, c, ho, wo, co, k;
+  int co_tile;          // o tile width (4, 8, ..., kMaxCoTile)
+  int kr, kc, cs;       // a tap group's box: kh rows, kw columns, channels
+  int gw, gc;           // tap groups along kw and along c
+  int rows_per_block;
+};
+
+// Input columns a tile of kTileW output pixels reads for kc taps kw.
+__host__ __device__ inline int x_cols(int kc) { return 2 * kTileW + kc - 2; }
 
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
 stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ dy,
-                   float* __restrict__ partial,
-                   int n, int h, int w, int c, int ho, int wo, int co, int k,
-                   int rows_per_block) {
+                   float* __restrict__ partial, StemArgs g) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int xw = 2 * kTileW + k - 2;  // input columns one tile reads
-  float* dys = smem;                  // [kTileW][co]
-  float* xs = smem + kTileW * co;     // [k][xw][c]
+  const int k = g.k, c = g.c, co = g.co, ct = g.co_tile;
+  // this block's tap group: taps kh0.., kw0.., c0.. of the box
+  const int grp_id = blockIdx.y;
+  const int kh0 = grp_id / (g.gw * g.gc) * g.kr;
+  const int kw0 = grp_id / g.gc % g.gw * g.kc;
+  const int c0 = grp_id % g.gc * g.cs;
+  const int nkh = min(g.kr, k - kh0), nkw = min(g.kc, k - kw0), ncs = min(g.cs, c - c0);
+  const int o0 = blockIdx.z * ct;
+  const int xw = x_cols(g.kc);
+  float* dys = smem;                  // [kTileW][co_tile]
+  float* xs = smem + kTileW * ct;     // [nkh][xw][ncs]
 
-  const int taps = k * k * c;
-  const int lanes = co / 4;  // threads across the output channels
+  const int taps = nkh * nkw * ncs;
+  const int lanes = ct / 4;  // threads across the output channels
   const int groups = kThreads / lanes;
   const int lane = threadIdx.x % lanes;
   const int grp = threadIdx.x / lanes;
   const int pad = k / 2;
 
-  // Shared-memory offset of each owned tap (kh, kw, c) at pixel 0 of a
-  // tile; pixel p adds 2*p*c. Taps past the end alias tap 0 and are
+  // Shared-memory offset of each owned tap at pixel 0 of a tile; pixel p
+  // adds 2*p*ncs. Taps past the group's end alias its tap 0 and are
   // computed but never written.
   int off[NT];
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     int j = grp + i * groups;
     j = j < taps ? j : 0;
-    const int kh = j / (k * c);
-    const int kw = (j / c) % k;
-    const int ci = j % c;
-    off[i] = (kh * xw + kw) * c + ci;
+    const int lh = j / (nkw * ncs);
+    const int lw = j / ncs % nkw;
+    off[i] = (lh * xw + lw) * ncs + j % ncs;
   }
   float acc[NT][4];
 #pragma unroll
@@ -79,36 +105,44 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   }
 
-  const int rows = n * ho;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, rows);
-  const int xcols = xw * c;
+  const int rows = g.n * g.ho;
+  const int r0 = blockIdx.x * g.rows_per_block;
+  const int r1 = min(r0 + g.rows_per_block, rows);
+  const int xcols = xw * ncs;
+  const bool whole_o = ct == co;  // one o tile, no padded lanes
   for (int r = r0; r < r1; ++r) {
-    const int b = r / ho;
-    const int oh = r % ho;
-    for (int w0 = 0; w0 < wo; w0 += kTileW) {
-      const int tw = min(kTileW, wo - w0);
+    const int b = r / g.ho;
+    const int oh = r % g.ho;
+    for (int w0 = 0; w0 < g.wo; w0 += kTileW) {
+      const int tw = min(kTileW, g.wo - w0);
       __syncthreads();  // the previous tile is consumed
-      const __nv_bfloat16* dyrow = dy + ((size_t)r * wo + w0) * co;
-      for (int i = threadIdx.x; i < tw * co; i += kThreads) {
-        dys[i] = __bfloat162float(dyrow[i]);
+      const __nv_bfloat16* dyrow = dy + ((size_t)r * g.wo + w0) * co;
+      if (whole_o) {
+        for (int i = threadIdx.x; i < tw * co; i += kThreads) {
+          dys[i] = __bfloat162float(dyrow[i]);
+        }
+      } else {
+        for (int i = threadIdx.x; i < tw * ct; i += kThreads) {
+          const int o = o0 + i % ct;
+          dys[i] = o < co ? __bfloat162float(dyrow[(i / ct) * co + o]) : 0.f;
+        }
       }
-      for (int i = threadIdx.x; i < k * xcols; i += kThreads) {
-        const int kh = i / xcols;
-        const int col = (i % xcols) / c;
-        const int ci = i % c;
-        const int hi = 2 * oh - pad + kh;
-        const int wi = 2 * w0 - pad + col;
+      for (int i = threadIdx.x; i < nkh * xcols; i += kThreads) {
+        const int lh = i / xcols;
+        const int col = (i % xcols) / ncs;
+        const int ci = i % ncs;
+        const int hi = 2 * oh - pad + kh0 + lh;
+        const int wi = 2 * w0 - pad + kw0 + col;
         float v = 0.f;
-        if (hi >= 0 && hi < h && wi >= 0 && wi < w) {
-          v = __bfloat162float(x[(((size_t)b * h + hi) * w + wi) * c + ci]);
+        if (hi >= 0 && hi < g.h && wi >= 0 && wi < g.w) {
+          v = __bfloat162float(x[(((size_t)b * g.h + hi) * g.w + wi) * c + c0 + ci]);
         }
         xs[i] = v;
       }
       __syncthreads();
       for (int p = 0; p < tw; ++p) {
-        const float4 d = *reinterpret_cast<const float4*>(dys + p * co + 4 * lane);
-        const float* xp = xs + 2 * p * c;
+        const float4 d = *reinterpret_cast<const float4*>(dys + p * ct + 4 * lane);
+        const float* xp = xs + 2 * p * ncs;
 #pragma unroll
         for (int i = 0; i < NT; ++i) {
           const float xv = xp[off[i]];
@@ -121,13 +155,24 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  float* out = partial + (size_t)blockIdx.x * taps * co;
+  // dW row of tap (kh, kw, c) is ((kh * k + kw) * C + c) * CO
+  float* out = partial + (size_t)blockIdx.x * k * k * c * co;
+  const int o = o0 + 4 * lane;
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int j = grp + i * groups;
-    if (j < taps) {
-      *reinterpret_cast<float4*>(out + j * co + 4 * lane) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (j < taps && o < co) {
+      const int lh = j / (nkw * ncs), lw = j / ncs % nkw;
+      float* dst = out + ((size_t)((kh0 + lh) * k + kw0 + lw) * c + c0 + j % ncs) * co + o;
+      if (co % 4 == 0) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (o + e < co) dst[e] = acc[i][e];
+        }
+      }
     }
   }
 }
@@ -158,46 +203,48 @@ stem_wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
   }
 }
 
-template <int NT>
-cudaError_t launch_partial(const __nv_bfloat16* x, const __nv_bfloat16* dy,
-                           float* partial, int n, int h, int w, int c, int ho,
-                           int wo, int co, int k, int rows_per_block,
-                           int blocks, size_t smem, cudaStream_t stream) {
-  stem_wgrad_partial<NT><<<blocks, kThreads, smem, stream>>>(
-      x, dy, partial, n, h, w, c, ho, wo, co, k, rows_per_block);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Threads per block of the partial kernel, for the wrapper's checks.
-int stem_conv_wgrad_threads() { return kThreads; }
-
 // Bytes of dynamic shared memory the partial kernel takes: the tile's dy
-// and the k input rows it reads, both as fp32.
-int stem_conv_wgrad_smem_bytes(int c, int co, int k) {
-  return (int)(sizeof(float) * (kTileW * co + k * (2 * kTileW + k - 2) * c));
+// (kTileW x co_tile) and the x slice of a tap group's box, both as fp32.
+int stem_conv_wgrad_smem_bytes(int co_tile, int kr, int kc, int cs) {
+  return (int)(sizeof(float) * (kTileW * co_tile + kr * x_cols(kc) * cs));
 }
 
-// Launches both kernels on `stream`. `partial` holds blocks * k*k*c * co
-// floats, `out` k*k*c * co floats. nt is the taps each thread owns (1..16).
-// Returns cudaGetLastError() after the launches (0 on success).
+// Launches the partial kernel on a grid of (row_blocks, tap groups, o
+// tiles) and, for row_blocks > 1, the reduction, on `stream`. The plan
+// (co_tile, the box kr x kc x cs, nt, rows_per_block, row_blocks) comes
+// from stem_wgrad_plan; nt is the taps each thread owns (1..16). With
+// row_blocks == 1 the partial kernel writes `out` and `partial` is unused;
+// otherwise `partial` holds row_blocks * k*k*c * co floats. Returns a CUDA
+// error code: cudaGetLastError() after the launches (0 on success).
 int stem_conv_wgrad(const void* x, const void* dy, void* partial, void* out,
                     int n, int h, int w, int c, int ho, int wo, int co, int k,
-                    int rows_per_block, int blocks, int nt, void* stream) {
-  const size_t smem = stem_conv_wgrad_smem_bytes(c, co, k);
+                    int co_tile, int kr, int kc, int cs, int nt,
+                    int rows_per_block, int row_blocks, void* stream) {
+  if (co_tile < 4 || co_tile > kMaxCoTile || (co_tile & (co_tile - 1)) || kr < 1 ||
+      kc < 1 || cs < 1 || row_blocks < 1 || rows_per_block < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  StemArgs a;
+  a.n = n; a.h = h; a.w = w; a.c = c; a.ho = ho; a.wo = wo; a.co = co; a.k = k;
+  a.co_tile = co_tile; a.kr = kr; a.kc = kc; a.cs = cs;
+  a.gw = (k + kc - 1) / kc;
+  a.gc = (c + cs - 1) / cs;
+  a.rows_per_block = rows_per_block;
+  const dim3 grid((unsigned)row_blocks, (unsigned)((k + kr - 1) / kr * a.gw * a.gc),
+                  (unsigned)((co + co_tile - 1) / co_tile));
+  const size_t smem = stem_conv_wgrad_smem_bytes(co_tile, kr, kc, cs);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* db = static_cast<const __nv_bfloat16*>(dy);
-  auto* pf = static_cast<float*>(partial);
+  float* target = static_cast<float*>(row_blocks == 1 ? out : partial);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
   switch (nt) {
-#define SEGTPU_NT(N)                                                        \
-  case N:                                                                   \
-    err = launch_partial<N>(xb, db, pf, n, h, w, c, ho, wo, co, k,          \
-                            rows_per_block, blocks, smem, s);               \
+#define SEGTPU_NT(N)                                                    \
+  case N:                                                               \
+    stem_wgrad_partial<N><<<grid, kThreads, smem, s>>>(xb, db, target, a); \
     break;
     SEGTPU_NT(1) SEGTPU_NT(2) SEGTPU_NT(3) SEGTPU_NT(4)
     SEGTPU_NT(5) SEGTPU_NT(6) SEGTPU_NT(7) SEGTPU_NT(8)
@@ -207,10 +254,11 @@ int stem_conv_wgrad(const void* x, const void* dy, void* partial, void* out,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || row_blocks == 1) return (int)err;
   const int elems = k * k * c * co;
   stem_wgrad_reduce<<<(elems + 31) / 32, 32 * kReduceWarps, 0, s>>>(
-      pf, static_cast<float*>(out), blocks, elems);
+      static_cast<const float*>(partial), static_cast<float*>(out), row_blocks, elems);
   return (int)cudaGetLastError();
 }
 

@@ -19,14 +19,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 _LIB_NAME = "stem_conv_wgrad"
-_MAX_TAPS_PER_THREAD = 16
-_SMEM_LIMIT = 48 * 1024  # bytes of dynamic shared memory without opt-in
+# The kernel's constants (segtpu_torch/csrc/stem_conv_wgrad.cu), mirrored
+# for the launch plan.
+THREADS = 256
+TILE_W = 32             # output pixels a block stages at a time
+MAX_TAPS_PER_THREAD = 16
+MAX_CO_TILE = 256       # widest o tile (its dy tile is 32 KB)
+SMEM_LIMIT = 48 * 1024  # bytes of shared memory a launch takes without opt-in
+# The partial buffer holds row_blocks * k*k*C*CO floats; the plan keeps it
+# under this many (64 MiB), down to one row block that writes dW directly.
+MAX_PARTIAL_FLOATS = 1 << 24
 
 
 def _out_size(size: int, k: int) -> int:
@@ -68,29 +77,62 @@ def stem_conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) ->
     return torch.stack(taps)
 
 
-def _kernel_plan(lib, x, dy, k):
-    """(taps per thread, rows per block, blocks) of a launch, or raise on a
-    shape the kernel does not take."""
-    threads = lib.stem_conv_wgrad_threads()
-    n, _, _, c = x.shape
-    _, ho, _, co = dy.shape
-    lanes = co // 4
-    if co % 4 or lanes == 0 or threads % lanes:
-        raise ValueError(f"stem_conv_wgrad kernel: CO={co} must be 4 times a "
-                         f"divisor of {threads}")
-    groups = threads // lanes
-    nt = -(-(k * k * c) // groups)
-    if nt > _MAX_TAPS_PER_THREAD:
-        raise ValueError(f"stem_conv_wgrad kernel: k={k}, C={c}, CO={co} needs "
-                         f"{nt} taps a thread, more than {_MAX_TAPS_PER_THREAD}")
-    smem = lib.stem_conv_wgrad_smem_bytes(c, co, k)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"stem_conv_wgrad kernel: {smem} bytes of shared "
-                         f"memory for C={c}, CO={co}, k={k}")
+class StemPlan(NamedTuple):
+    """Launch of the stem kernel on a grid of (row_blocks, tap_groups,
+    o_tiles). An o tile is ``co_tile`` output channels; a tap group is a box
+    of ``kr`` rows kh, ``kc`` columns kw and ``cs`` channels c, of which each
+    thread owns ``nt`` taps; a row block walks ``rows_per_block`` output
+    rows (n, ho). With one row block the kernel writes dW directly."""
+    co_tile: int
+    kr: int
+    kc: int
+    cs: int
+    nt: int
+    tap_groups: int
+    o_tiles: int
+    rows_per_block: int
+    row_blocks: int
+
+
+def smem_bytes(co_tile: int, kr: int, kc: int, cs: int) -> int:
+    """Shared memory of one block (``stem_conv_wgrad_smem_bytes``): the dy
+    tile and the x slice of a tap group, as fp32."""
+    return 4 * (TILE_W * co_tile + kr * (2 * TILE_W + kc - 2) * cs)
+
+
+def stem_wgrad_plan(n: int, ho: int, c: int, co: int, k: int, sms: int) -> StemPlan:
+    """The stem kernel's launch for x with C channels and dy (N, Ho, Wo, CO).
+
+    The o tile is CO padded to a power of two (its quarter divides the
+    block's threads), at most :data:`MAX_CO_TILE`, further o tiles on a grid
+    axis. The tap boxes are the fewest that keep each thread at most
+    :data:`MAX_TAPS_PER_THREAD` taps and the block within
+    :data:`SMEM_LIMIT`; their sizes are balanced. About four blocks an SM,
+    with the partial buffer under :data:`MAX_PARTIAL_FLOATS`.
+    """
+    co_tile = min(MAX_CO_TILE, max(4, 1 << (co - 1).bit_length()))
+    o_tiles = -(-co // co_tile)
+    cap = THREADS // (co_tile // 4) * MAX_TAPS_PER_THREAD  # taps a block holds
+    best = None
+    for kr in range(k, 0, -1):
+        for kc in range(k, 0, -1):
+            room = SMEM_LIMIT - smem_bytes(co_tile, 0, kc, 0)
+            cs = min(c, cap // (kr * kc), room // smem_bytes(0, kr, kc, 1))
+            if cs < 1:
+                continue
+            counts = (-(-k // kr), -(-k // kc), -(-c // cs))
+            if best is None or math.prod(counts) < math.prod(best):
+                best = counts
+    gh, gw, gc = best
+    kr, kc, cs = -(-k // gh), -(-k // gw), -(-c // gc)  # balanced boxes
+    nt = -(-(kr * kc * cs) // (THREADS // (co_tile // 4)))
+    tap_groups = gh * gw * gc
     rows = n * ho
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows_per_block = max(1, math.ceil(rows / (4 * sms)))
-    return nt, rows_per_block, math.ceil(rows / rows_per_block)
+    row_blocks = max(1, min(-(-4 * sms // (tap_groups * o_tiles)),
+                            MAX_PARTIAL_FLOATS // (k * k * c * co), rows))
+    rows_per_block = -(-rows // row_blocks)
+    return StemPlan(co_tile, kr, kc, cs, nt, tap_groups, o_tiles, rows_per_block,
+                    -(-rows // rows_per_block))
 
 
 @functools.cache
@@ -98,11 +140,10 @@ def _lib():
     from segtpu_torch.ops import build
 
     lib = build.load(_LIB_NAME)
-    lib.stem_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    lib.stem_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                                     + [ctypes.c_void_p])
     lib.stem_conv_wgrad.restype = ctypes.c_int
-    lib.stem_conv_wgrad_threads.restype = ctypes.c_int
-    lib.stem_conv_wgrad_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.stem_conv_wgrad_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.stem_conv_wgrad_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -128,18 +169,22 @@ def stem_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) -> torch
     _, ho, wo, co = dy.shape
     with torch.cuda.device(x.device):
         lib = _lib()
-        nt, rows_per_block, blocks = _kernel_plan(lib, x, dy, k)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = stem_wgrad_plan(n, ho, c, co, k, sms)
         xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
         if not xb.is_contiguous() or not dyb.is_contiguous():
             stem_conv_wgrad.copies += 1
             xb, dyb = xb.contiguous(), dyb.contiguous()
-        partial = torch.empty((blocks, k * k * c, co), dtype=torch.float32,
-                              device=x.device)
         out = torch.empty((k, k, c, co), dtype=torch.float32, device=x.device)
+        partial = out
+        if plan.row_blocks > 1:
+            partial = torch.empty((plan.row_blocks, k * k * c, co),
+                                  dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.stem_conv_wgrad(
             xb.data_ptr(), dyb.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n, h, w, c, ho, wo, co, k, rows_per_block, blocks, nt, stream)
+            n, h, w, c, ho, wo, co, k, plan.co_tile, plan.kr, plan.kc, plan.cs,
+            plan.nt, plan.rows_per_block, plan.row_blocks, stream)
         if err != 0:
             raise RuntimeError(f"stem_conv_wgrad kernel launch failed: CUDA error {err}")
         stem_conv_wgrad.launches += 1

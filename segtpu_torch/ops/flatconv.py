@@ -135,9 +135,12 @@ def _lib():
     lib.flat_conv_wgrad_occupancy.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.flat_conv_wgrad_occupancy.restype = ctypes.c_int
-    lib.flat_conv_dgrad.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    lib.flat_conv_dgrad.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
                                     + [ctypes.c_void_p])
     lib.flat_conv_dgrad.restype = ctypes.c_int
+    lib.flat_conv_dgrad_occupancy.argtypes = [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.flat_conv_dgrad_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -205,6 +208,111 @@ def wgrad_launch_plan(x_shape, o: int, kernel_hw, dilation: int,
         blocks, smem = wgrad_occupancy(_lib(), o, dilation, tile_o, taps)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     return wgrad_plan(n * h * w, kh, kw, c, o, dilation, sms, blocks), blocks, smem
+
+
+# The dgrad kernel's constants (segtpu_torch/csrc/flat_conv.cu), mirrored
+# for its launch plan.
+DGRAD_ROWS = 128          # dx rows of a block tile (two warpgroups of 64)
+DGRAD_STAGES = 3          # depth of the cp.async ring
+DGRAD_MAX_SHIFT = 128     # extra window rows a stage's taps may span
+DGRAD_EPILOGUE_BYTES = 8 * 16 * 72 * 2
+SMEM_PER_BLOCK = 232448   # the most dynamic shared memory a Hopper block takes
+
+
+class DgradPlan(NamedTuple):
+    """Launch of the dgrad kernel: ``blocks`` blocks walk the tiles of
+    :data:`DGRAD_ROWS` dx rows x ``tile_c`` channels, t = block, block +
+    blocks, ... (c tile fastest); K runs over the taps and o chunks of
+    ``ko``, a stage holding ``taps`` taps of one tap row and their one dy
+    window; ``resident`` keeps the whole weight in shared memory."""
+    tile_c: int
+    ko: int
+    taps: int
+    resident: bool
+    blocks: int
+
+
+def dgrad_smem_bytes(tile_c: int, ko: int, taps: int, dilation: int, o: int,
+                     kh: int, kw: int, resident: bool) -> int:
+    """Dynamic shared memory of one dgrad block (``dgrad_smem`` in the
+    kernel): the weight tiles, the ring of dy windows (and of raw dy spans
+    where O is not a multiple of 8 and fits one chunk), the epilogue tiles,
+    and 1024 bytes of alignment slack."""
+    wtiles = kh * kw * -(-o // ko) if resident else DGRAD_STAGES * taps
+    win = DGRAD_ROWS + (taps - 1) * dilation
+    span = -(-(win * o * 2) // 16) * 16 + 16 if o % 8 and o <= ko else 0
+    return (wtiles * tile_c * ko * 2 + DGRAD_STAGES * (win * (ko + 8) * 2 + span)
+            + DGRAD_EPILOGUE_BYTES + 1024)
+
+
+DGRAD_TILES = ((64, 32), (64, 64), (128, 32), (128, 64), (256, 32))  # (tile_c, ko) built
+
+
+def dgrad_tiling(c: int, o: int, kh: int, kw: int, dilation: int, tile_c=None, ko=None):
+    """(tile_c, ko, taps, resident) of the dgrad kernel. The c tile covers C
+    up to 256 (64, 128 or 256 wide), so dy is read once per c tile; the o
+    chunk is 32 for O <= 32 and at the 256-wide tile, else 64. A stage holds
+    as many taps of a tap row as fit (all kw where the window and the ring
+    allow), in balanced groups. The weight stays resident where there is one
+    c tile and all of it fits beside the ring. ``tile_c`` and ``ko``
+    override the choice (one of :data:`DGRAD_TILES`)."""
+    tile_c = tile_c or (64 if c <= 64 else 128 if c <= 128 else 256)
+    ko = ko or (32 if o <= 32 or tile_c == 256 else 64)
+    if (tile_c, ko) not in DGRAD_TILES:
+        raise ValueError(f"flat_conv_dgrad: no kernel for c tile {tile_c}, o chunk {ko}")
+    for resident in ((True, False) if c <= tile_c else (False,)):
+        taps = kw
+        while taps > 1 and ((taps - 1) * dilation > DGRAD_MAX_SHIFT or dgrad_smem_bytes(
+                tile_c, ko, taps, dilation, o, kh, kw, resident) > SMEM_PER_BLOCK):
+            taps -= 1
+        if dgrad_smem_bytes(tile_c, ko, taps, dilation, o, kh, kw,
+                            resident) <= SMEM_PER_BLOCK:
+            return tile_c, ko, -(-kw // -(-kw // taps)), resident
+    raise ValueError(f"flat_conv_dgrad: no launch fits C={c}, O={o}, {kh}x{kw}, "
+                     f"dilation {dilation}")
+
+
+def dgrad_plan(rows: int, c: int, o: int, kh: int, kw: int, dilation: int, sms: int,
+               blocks_per_sm: int, tile_c=None, ko=None) -> DgradPlan:
+    """The dgrad launch: as many blocks as fit on the card at once
+    (``blocks_per_sm``, the kernel's own occupancy), each walking its share
+    of the tiles, and no more blocks than tiles. The block count is a
+    multiple of the c tiles, so each block keeps one c tile. ``tile_c`` and
+    ``ko`` override the tiling's."""
+    tile_c, ko, taps, resident = dgrad_tiling(c, o, kh, kw, dilation, tile_c, ko)
+    ctiles = -(-c // tile_c)
+    tiles = -(-rows // DGRAD_ROWS) * ctiles
+    blocks = min(tiles, max(ctiles, blocks_per_sm * sms // ctiles * ctiles))
+    return DgradPlan(tile_c, ko, taps, resident, blocks)
+
+
+def dgrad_occupancy(lib, o: int, kh: int, kw: int, dilation: int, tile_c: int, ko: int,
+                    taps: int, resident: bool) -> Tuple[int, int]:
+    """(blocks per SM, dynamic shared memory bytes per block) of the dgrad
+    kernel of ``lib`` for this tiling, as the CUDA runtime reports it on the
+    current card."""
+    smem = ctypes.c_int(0)
+    blocks = lib.flat_conv_dgrad_occupancy(o, kh, kw, dilation, tile_c, ko, taps,
+                                           int(resident), ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError(f"flat_conv_dgrad: no block fits on an SM (CUDA error "
+                           f"{-blocks}, {smem.value} bytes of shared memory)")
+    return blocks, smem.value
+
+
+def dgrad_launch_plan(dy_shape, c: int, kernel_hw, dilation: int,
+                      device) -> Tuple[DgradPlan, int, int]:
+    """(plan, blocks per SM, shared memory bytes per block) of the dgrad
+    launch :func:`flat_conv_dgrad` makes for NHWC ``dy_shape`` and C input
+    channels on the CUDA ``device``."""
+    n, h, w, o = dy_shape
+    kh, kw = kernel_hw
+    tile_c, ko, taps, resident = dgrad_tiling(c, o, kh, kw, dilation)
+    with torch.cuda.device(device):
+        blocks, smem = dgrad_occupancy(_lib(), o, kh, kw, dilation, tile_c, ko, taps,
+                                       resident)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dgrad_plan(n * h * w, c, o, kh, kw, dilation, sms, blocks), blocks, smem
 
 
 def _dense_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -284,11 +392,16 @@ def flat_conv_dgrad(dy: torch.Tensor, w_hwio: torch.Tensor, kernel_hw=(3, 3),
         lib = _lib()
         dyb, copied = _dense_bf16(dy)
         flat_conv_dgrad.copies += copied
-        wb, _ = _dense_bf16(w_hwio)  # the weight is small: rearranged freely
+        # the weight is small and rearranged freely: O is padded with zeros to
+        # a multiple of 8, so that its rows take 16-byte copies
+        ow = -(-o // 8) * 8
+        wb, _ = _dense_bf16(F.pad(w_hwio, (0, ow - o)) if ow != o else w_hwio)
+        plan, _, _ = dgrad_launch_plan(dy.shape, c, (kh, kw), dilation, dev)
         dx = torch.empty((n, h, w, c), dtype=torch.bfloat16, device=dev)
         err = lib.flat_conv_dgrad(
-            dyb.data_ptr(), wb.data_ptr(), dx.data_ptr(), n, h, w, c, o, kh, kw,
-            padding, dilation, torch.cuda.current_stream(dev).cuda_stream)
+            dyb.data_ptr(), wb.data_ptr(), dx.data_ptr(), n, h, w, c, o, ow, kh, kw,
+            padding, dilation, plan.tile_c, plan.ko, plan.taps, int(plan.resident),
+            plan.blocks, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flat_conv_dgrad kernel launch failed: CUDA error {err}")
         flat_conv_dgrad.launches += 1

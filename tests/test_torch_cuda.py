@@ -19,9 +19,12 @@ from segtpu_torch.ops import conv_wgrad as cw
 from segtpu_torch.ops import flatconv as fc
 
 # stem weight gradient: n, h, w, c, co, k (tests/test_conv_wgrad.py's shapes
-# and the main path's)
+# and the main path's, then shapes that take tap groups, a padded o tile, a
+# direct write with no partial buffer and several o tiles)
 STEM_SHAPES = [(2, 65, 65, 3, 64, 7), (1, 32, 48, 3, 16, 7), (2, 64, 64, 4, 32, 7),
-               (2, 65, 65, 3, 64, 3), (2, 33, 47, 5, 16, 3), (8, 769, 769, 3, 64, 3)]
+               (2, 65, 65, 3, 64, 3), (2, 33, 47, 5, 16, 3), (8, 769, 769, 3, 64, 3),
+               (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3), (2, 33, 47, 5, 19, 3),
+               (1, 17, 17, 64, 64, 7), (1, 9, 9, 3, 600, 3)]
 # flat-row conv: n, h, w, c, o, k, p, d (tests/test_flatconv.py's cases)
 FLAT_CASES = [
     (2, 33, 33, 64, 64, 3, 1, 1), (2, 33, 33, 64, 128, 3, 1, 1),
@@ -61,6 +64,15 @@ def test_stem_wgrad_kernel_matches_plain(shape, cuda_device):
     torch.cuda.synchronize()
     assert cw.stem_conv_wgrad.launches == before + 1
     assert _rel_max(got, want) < WGRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_plan_shared_memory_is_the_kernels(shape, cuda_device):
+    n, h, w, c, co, k = shape
+    plan = cw.stem_wgrad_plan(n, (h + 2 * (k // 2) - k) // 2 + 1, c, co, k, sms=132)
+    box = (plan.co_tile, plan.kr, plan.kc, plan.cs)
+    assert cw._lib().stem_conv_wgrad_smem_bytes(*box) == cw.smem_bytes(*box)
 
 
 def _flat_inputs(case, seed, device):
@@ -111,6 +123,65 @@ def test_flat_wgrad_kernel_matches_plain(case, cuda_device):
     assert fc.flat_conv_wgrad.launches == launches + 1
     assert got.shape == (k, k, c, o) and got.dtype == torch.float32
     assert _rel_max(got, fc.flat_conv_wgrad_plain(x, dy, (k, k), p, d)) < WGRAD_TOL
+
+
+# flat-row dgrad cases that reach each path of the kernel: n, h, w, c, o, k, p, d
+DGRAD_CASES = [
+    (2, 17, 29, 40, 19, 3, 1, 1),      # O = 19: the dy span, resident weight
+    (2, 17, 29, 5, 19, 3, 1, 1),       # C and O not multiples of 8: masked stores
+    (1, 15, 17, 13, 70, 3, 1, 1),      # O past one chunk, not a multiple of 8: 2-byte dy
+    (1, 19, 23, 300, 64, 3, 1, 1),     # C past one c tile: two tiles, weight staged
+    (2, 13, 11, 16, 24, 3, 4, 4),      # dilation 4: the window crosses images
+    (3, 19, 23, 64, 64, 3, 1, 1),      # 1311 rows: a ragged last row tile
+    (1, 12, 14, 100, 200, 3, 1, 1),    # 128-wide c tile, four o chunks, weight staged
+    (3, 15, 15, 24, 8, 5, 2, 1),       # 5x5: one stage of 5 taps
+    (1, 16, 16, 16, 16, 7, 3, 1),      # 7x7: taps in sub-groups of 3, 3 and 1
+    (1, 10, 12, 8, 8, 3, 80, 80),      # window past the ring's row budget: 2 + 1 taps
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DGRAD_CASES)
+def test_flat_dgrad_kernel_matches_plain(case, cuda_device):
+    n, h, w, c, o, k, p, d = case
+    _, dy, wk = _flat_inputs(case, sum(case), cuda_device)
+    launches = fc.flat_conv_dgrad.launches
+    got = fc.flat_conv_dgrad(dy, wk, (k, k), p, d)
+    torch.cuda.synchronize()
+    assert fc.flat_conv_dgrad.launches == launches + 1
+    assert got.shape == (n, h, w, c) and got.dtype == torch.bfloat16
+    assert _rel_max(got, fc.flat_conv_dgrad_plain(dy, wk, (k, k), p, d)) <= DGRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,blocks", [
+    ((3, 19, 23, 64, 64, 3, 1, 1), 3), ((1, 19, 23, 300, 64, 3, 1, 1), 2),
+    ((2, 17, 29, 40, 19, 3, 1, 1), 3), ((1, 12, 14, 100, 200, 3, 1, 1), 1)])
+def test_flat_dgrad_blocks_that_walk_several_tiles(case, blocks, cuda_device):
+    """Fewer blocks than tiles, as at full width: block b walks the tiles b,
+    b + blocks, ..., its ring running on from one tile into the next."""
+    n, h, w, c, o, k, p, d = case
+    _, dy, wk = _flat_inputs(case, sum(case), cuda_device)
+    tile_c, ko, taps, resident = fc.dgrad_tiling(c, o, k, k, d)
+    ow = -(-o // 8) * 8
+    wb = torch.nn.functional.pad(wk, (0, ow - o)).bfloat16().contiguous()
+    dyb = dy.bfloat16()
+    dx = torch.empty((n, h, w, c), dtype=torch.bfloat16, device=cuda_device)
+    err = fc._lib().flat_conv_dgrad(
+        dyb.data_ptr(), wb.data_ptr(), dx.data_ptr(), n, h, w, c, o, ow, k, k, p, d,
+        tile_c, ko, taps, int(resident), blocks, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert _rel_max(dx, fc.flat_conv_dgrad_plain(dy, wk, (k, k), p, d)) <= DGRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLAT_CASES + DGRAD_CASES)
+def test_dgrad_plan_shared_memory_is_the_kernels(case, cuda_device):
+    n, h, w, c, o, k, p, d = case
+    plan, _, smem = fc.dgrad_launch_plan((n, h, w, o), c, (k, k), d, cuda_device)
+    assert smem == fc.dgrad_smem_bytes(plan.tile_c, plan.ko, plan.taps, d, o, k, k,
+                                       plan.resident)
 
 
 @pytest.mark.cuda

@@ -155,6 +155,36 @@ def test_wgrad_plan_covers_every_row_once_and_bounds_the_partials(shape):
         assert plan.splits == 1 or tiles * plan.splits <= blocks_per_sm * 132
 
 
+@pytest.mark.parametrize("case", [
+    (8, 385, 385, 64, 64, 3, 1, 1), (8, 385, 385, 64, 128, 3, 1, 1),
+    (8, 97, 97, 512, 512, 3, 4, 4), (8, 193, 193, 256, 19, 3, 1, 1),
+    (8, 193, 193, 256, 256, 3, 1, 1)] + CASES)
+def test_dgrad_plan_covers_every_row_and_c_tile_once(case):
+    """Walk the grid as the dgrad kernel does: block b takes the tiles b, b +
+    blocks, ...; every (row tile, c tile) once, each block on one c tile,
+    every tap of a tap row in exactly one stage, and the block within the
+    shared memory an SM has."""
+    n, h, w, c, o, k, p, d = case
+    rows = n * h * w
+    for blocks_per_sm in (1, 2):
+        plan = fc.dgrad_plan(rows, c, o, k, k, d, sms=132, blocks_per_sm=blocks_per_sm)
+        ctiles = -(-c // plan.tile_c)
+        tiles = -(-rows // fc.DGRAD_ROWS) * ctiles
+        walks = [list(range(b, tiles, plan.blocks)) for b in range(plan.blocks)]
+        assert sorted(t for walk in walks for t in walk) == list(range(tiles))
+        assert all(len({t % ctiles for t in walk}) == 1 for walk in walks)
+        assert plan.blocks <= max(ctiles, blocks_per_sm * 132)
+        assert plan.tile_c >= min(c, 256) and plan.ko in (32, 64)
+        groups = -(-k // plan.taps)
+        assert sorted(b for g in range(groups)
+                      for b in range(g * plan.taps, min(k, (g + 1) * plan.taps))) == list(range(k))
+        assert plan.taps == 1 or (plan.taps - 1) * d <= fc.DGRAD_MAX_SHIFT
+        assert not plan.resident or ctiles == 1
+        assert fc.dgrad_smem_bytes(plan.tile_c, plan.ko, plan.taps, d, o, k, k,
+                                   plan.resident) <= fc.SMEM_PER_BLOCK
+        assert plan.taps == k  # a stage holds its whole tap row: dy staged kh times
+
+
 def _loss_grads_torch(x, wk, k, p, d, conv):
     """(dL/dx, dL/dw) NHWC / HWIO of sum(tanh(conv(x, w))) in torch."""
     xt = torch.tensor(x.transpose(0, 3, 1, 2), requires_grad=True)

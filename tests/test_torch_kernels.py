@@ -23,6 +23,10 @@ SHAPES = [
     (2, 64, 64, 4, 32, 7),
     (2, 65, 65, 3, 64, 3),
     (2, 33, 47, 5, 16, 3),
+    # shapes the card kernel once refused: C >= 6 at k = 7, CO = 48, CO = 19
+    (1, 33, 33, 6, 64, 7),
+    (1, 33, 33, 3, 48, 3),
+    (2, 33, 47, 5, 19, 3),
 ]
 # segtpu's own kernel tolerance: bf16-rounded inputs, fp32 sums in other orders
 REL_TOL = 5e-3
@@ -46,6 +50,45 @@ def test_plain_matches_segtpu_pallas_kernel(shape):
     got = cw.stem_conv_wgrad_plain(torch.from_numpy(x), torch.from_numpy(dy), k)
     assert got.shape == (k, k, shape[3], shape[4]) and got.dtype == torch.float32
     assert rel_max(got.numpy(), want) < REL_TOL
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 769, 769, 3, 64, 3), (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3),
+    (2, 33, 47, 5, 19, 3), (1, 17, 17, 64, 64, 7), (1, 9, 9, 3, 600, 3)])
+def test_stem_plan_covers_every_tap_and_o_once_and_bounds_the_partials(shape):
+    """Walk the grid as the kernel does: every (kh, kw, c, o) of dW is owned
+    by exactly one tap group and o tile, every output row by one row block;
+    each thread holds at most 16 taps, each block fits the shared memory a
+    launch takes without opting in, and the partial buffer stays under its
+    cap (or is not used)."""
+    n, h, w, c, co, k = shape
+    ho = (h + 2 * (k // 2) - k) // 2 + 1
+    plan = cw.stem_wgrad_plan(n, ho, c, co, k, sms=132)
+    threads_per_o = plan.co_tile // 4
+    assert 4 <= plan.co_tile <= cw.MAX_CO_TILE and cw.THREADS % threads_per_o == 0
+    assert plan.o_tiles * plan.co_tile >= co > (plan.o_tiles - 1) * plan.co_tile
+    gh, gw, gc = -(-k // plan.kr), -(-k // plan.kc), -(-c // plan.cs)
+    assert plan.tap_groups == gh * gw * gc
+    owned = np.zeros((k, k, c, co), np.int64)
+    for grp in range(plan.tap_groups):
+        kh0 = grp // (gw * gc) * plan.kr
+        kw0 = grp // gc % gw * plan.kc
+        c0 = grp % gc * plan.cs
+        box = (min(plan.kr, k - kh0), min(plan.kc, k - kw0), min(plan.cs, c - c0))
+        assert np.prod(box) <= plan.nt * (cw.THREADS // threads_per_o)
+        for o_tile in range(plan.o_tiles):
+            o0 = o_tile * plan.co_tile
+            owned[kh0:kh0 + box[0], kw0:kw0 + box[1], c0:c0 + box[2],
+                  o0:o0 + plan.co_tile] += 1
+    assert (owned == 1).all()
+    assert 1 <= plan.nt <= cw.MAX_TAPS_PER_THREAD
+    assert cw.smem_bytes(plan.co_tile, plan.kr, plan.kc, plan.cs) <= cw.SMEM_LIMIT
+    rows = n * ho
+    starts = range(0, rows, plan.rows_per_block)
+    assert len(starts) == plan.row_blocks and plan.row_blocks * plan.rows_per_block >= rows
+    assert plan.row_blocks == 1 or plan.row_blocks * k * k * c * co <= cw.MAX_PARTIAL_FLOATS
+    if shape == (8, 769, 769, 3, 64, 3):  # the main path: one tap group, 514 row blocks
+        assert plan == (64, 3, 3, 3, 2, 1, 1, 6, 514)
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
