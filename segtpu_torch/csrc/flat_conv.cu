@@ -69,17 +69,17 @@
 // specialisation) that overlaps the copies with the products is the next
 // step.
 
-// dgrad (flat_dgrad<N, KO>), warpgroup products (wgmma) fed by a cp.async
-// ring:
-//   * a block is two warpgroups (256 threads) on a tile of 128 dx rows x an
-//     N-wide c tile (N = 64, 128 or 256: all of C up to 256, so dy is read
-//     once per c tile); each warpgroup owns 64 rows and all N channels in
-//     ONE set of N/2 fp32 accumulators a thread, into which every tap and
-//     o chunk sums. The grid is one wave (the wrapper sizes it from the
-//     kernel's own occupancy, flat_conv_dgrad_occupancy): block b walks
-//     the tiles b, b + blocks, ... and its ring runs on from one tile into
-//     the next, so the next tile's first copies overlap this tile's
-//     epilogue;
+// dgrad (flat_dgrad<N, KO>), warp specialised: warpgroup products (wgmma)
+// fed by a producer warpgroup through a cp.async ring and mbarriers:
+//   * a block is three warpgroups on a tile of 128 dx rows x an N-wide c
+//     tile (N = 64, 128 or 256: all of C up to 256, so dy is read once per
+//     c tile). Warpgroups 0 and 1 multiply: each owns 64 rows and all N
+//     channels in ONE set of N/2 fp32 accumulators a thread, into which
+//     every tap and o chunk sums. Warpgroup 2 issues every copy. The grid
+//     is one wave (the wrapper sizes it from the kernel's own occupancy,
+//     flat_conv_dgrad_occupancy): block b walks the tiles b, b + blocks, ...
+//     and its ring runs on from one tile into the next, so the next tile's
+//     copies overlap this tile's products and epilogue;
 //   * K = taps x O. A stage is one tap row a, its taps (all kw of them
 //     where the window and the ring allow) and one o chunk of KO (32 or
 //     64): ONE dy window of 128 + (taps - 1) * d rows, as tap b reads rows
@@ -96,18 +96,26 @@
 //     beside the ring (stem_conv2, stem_conv3, the UperNet head), it is
 //     staged once per block and stays; otherwise each stage brings its taps'
 //     tiles. The wrapper pads the weight's O to a multiple of 8 with zeros;
-//   * staging: cp.async (16 bytes, .cg) into a ring of 3 slots, two stages
-//     ahead. Rows outside [0, N*H*W) are zero-filled through the copy's
-//     source size 0, so NaN just outside dy cannot reach dx. O not a
-//     multiple of 8 (the head's 19): the window's rows are one contiguous
-//     span, copied from the 16-byte boundary at or before it and laid out
-//     into the window in one shared-memory pass, zero past O (K padded to
-//     32); O past one chunk and not a multiple of 8 takes 2-byte loads;
-//   * epilogue: each warp rounds its 16 rows to bf16 into its own tile of
-//     shared memory, 64 channels at a time, and writes whole 16-byte pieces
-//     of dx rows, 8 lanes to a row's 128 bytes (2-byte stores where C is
-//     not a multiple of 8). Rows past the end and channels past C are not
-//     written. No reduction across blocks.
+//   * staging: the producer's cp.async (16 bytes, .cg) into a ring of 3
+//     slots. mbarrier full[s] completes when the producer's 128 threads
+//     have seen their copies of slot s land (and fenced them for the tensor
+//     cores), empty[s] when the 256 consumer threads have read it. Rows
+//     outside [0, N*H*W) are zero-filled through the copy's source size 0,
+//     so NaN just outside dy cannot reach dx. O not a multiple of 8 (the
+//     head's 19): the window's rows are one contiguous span, copied from the
+//     16-byte boundary at or before it and laid out by the producer into
+//     the window, zero past O (K padded to 32); O past one chunk and not a
+//     multiple of 8 takes 2-byte loads;
+//   * epilogue: each consumer warp rounds its 16 rows to bf16 into its own
+//     tile of shared memory, 64 channels at a time, and writes whole 16-byte
+//     pieces of dx rows, 8 lanes to a row's 128 bytes (2-byte stores where
+//     C is not a multiple of 8). Rows past the end and channels past C are
+//     not written. No reduction across blocks.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_dgrad_parts.py
+// times builds that skip the copies or the products): at stem_conv2,
+// stem_conv3 and the head the products (N = 64 wgmma at about 220-250
+// TFLOP/s); at layer4 and FPN.smooth_conv.0 the weight, restaged for every
+// stage (about 3.3 GB from L2), whose copies do not overlap the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -573,12 +581,14 @@ flat_wgrad_reduce(const float* __restrict__ partial, float* __restrict__ out,
 }
 
 // ---- dgrad ----
-constexpr int kDThreads = 256;  // two consumer warpgroups
+constexpr int kDConsumers = 256;            // two consumer warpgroups
+constexpr int kDProducers = 128;            // one producer warpgroup
+constexpr int kDThreads = kDConsumers + kDProducers;
 constexpr int kDM = 128;        // dx rows of a block tile: 64 a warpgroup
 constexpr int kDStages = 3;     // depth of the cp.async ring
 constexpr int kDSubTaps = 3;    // taps whose A fragments a thread holds at once
 constexpr int kDEpLd = 72;      // epilogue row stride: 64 c + 8, 144 bytes
-constexpr int kDEpBytes = (kDThreads / 32) * 16 * kDEpLd * 2;  // 16 rows a warp
+constexpr int kDEpBytes = (kDConsumers / 32) * 16 * kDEpLd * 2;  // 16 rows a warp
 
 // Products with B K-major (o contiguous), read by descriptor: D (64 x N,
 // fp32) = A (64 x 16, registers) * B (16 x N, shared memory) + D, or
@@ -657,6 +667,29 @@ __device__ __forceinline__ uint64_t wk_desc(uint32_t addr) {
          layout << 62;
 }
 
+// mbarriers in shared memory (CTA scope): init with the count of arrivals a
+// phase takes, arrive (release), and wait for the phase of the given parity
+// to complete (acquire).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// the producer warpgroup's own barrier (id 1; 0 is __syncthreads)
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kDProducers) : "memory");
+}
+
 struct DgradArgs {
   Geom g;
   int ow;       // o stride of the weight: O rounded up to a multiple of 8
@@ -703,11 +736,15 @@ struct DStage {
 };
 
 // grid: x = blocks, each walking the tiles t = blockIdx.x, + gridDim.x, ...
-// (tile t: row tile t / ctiles, c tile t % ctiles; c fastest). Two
-// warpgroups: warpgroup v owns dx rows 64v .. 64v+63 of the tile and all N
-// channels, in one set of N / 2 fp32 accumulators a thread. Products: M =
-// rows, N = c, K = taps x o; A = dy from the window by ldmatrix into
-// registers (masked there), B = W from shared memory by descriptor.
+// (tile t: row tile t / ctiles, c tile t % ctiles; c fastest). Warp
+// specialised: warpgroups 0 and 1 multiply, warpgroup 2 copies. Consumer
+// warpgroup v owns dx rows 64v .. 64v+63 of the tile and all N channels, in
+// one set of N / 2 fp32 accumulators a thread. Products: M = rows, N = c,
+// K = taps x o; A = dy from the window by ldmatrix into registers (masked
+// there), B = W from shared memory by descriptor. The ring's slots pass
+// between the two roles through mbarriers: full[s] (the producer's 128
+// threads arrive once the slot's copies have landed) and empty[s] (the 256
+// consumer threads arrive once their products have read it).
 template <int N, int KO>
 __global__ void __launch_bounds__(kDThreads, 1)
 flat_dgrad(const unsigned short* __restrict__ dy,
@@ -719,7 +756,8 @@ flat_dgrad(const unsigned short* __restrict__ dy,
   constexpr int WLD = KO + 8;            // window row stride, in bf16
   constexpr int TILE = N * KO;           // bf16 of one weight tile
   extern __shared__ uint4 dgrad_smem_raw[];
-  const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(dgrad_smem_raw));
+  __shared__ uint64_t full[kDStages], empty[kDStages];
+  const uint32_t raw_addr = smem_u32(dgrad_smem_raw);
   unsigned char* base = reinterpret_cast<unsigned char*>(dgrad_smem_raw) +
                         (((raw_addr + 1023) & ~1023u) - raw_addr);
   const Geom& g = args.g;
@@ -730,11 +768,6 @@ flat_dgrad(const unsigned short* __restrict__ dy,
   unsigned char* rawsm = base + lay.raw;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int mat = lane >> 3;  // which 8x8 matrix this lane addresses
-  const int mrow = lane & 7;  // which of its rows
-  const int rbase = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's 16 dx rows
   const int per_tile = g.kh * args.groups * args.chunks;
   const int nstages = (args.tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                       (int)gridDim.x * per_tile;
@@ -761,220 +794,249 @@ flat_dgrad(const unsigned short* __restrict__ dy,
     return (long long)st.r0 - (long long)(st.a * g.dil - g.pad) * g.w + g.pad -
            (long long)(st.b0 + st.nt - 1) * g.dil;
   };
-  // the weight tile of tap (a, b), o chunk ch, c tile from c0 -> dst
-  auto stage_weight = [&](unsigned short* dst, int a, int b, int ch, int c0) {
-    const unsigned short* src = wt + (size_t)(a * g.kw + b) * g.c * args.ow;
-    for (int e = tid; e < N * KP; e += kDThreads) {
-      const int n = e / KP, p = e % KP;
-      const int c = c0 + n, o = ch * KO + 8 * p;
-      const bool ok = c < g.c && o < args.ow;
-      cp_async16(dst + dy_at<KO>(n, p), ok ? src + (size_t)c * args.ow + o : wt, ok ? 16 : 0);
-    }
-  };
 
-  // Stage q of this block (its dy window, and its weight tiles unless they
-  // are resident) into ring slot q % kDStages; commit one cp.async group
-  // (empty past the end). Rows outside [0, rows) are zero-filled through the
-  // copy's source size 0 and never read.
-  auto stage = [&](int q) {
-#ifdef FLAT_DGRAD_SKIP_COPIES  // timing build of scripts/torch_dgrad_parts.py only
-    if (q >= kDStages - 1) {
-      cp_async_commit();
-      return;
+  if (tid == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      mbar_init(&full[s], kDProducers);
+      mbar_init(&empty[s], kDConsumers);
     }
-#endif
-    if (q < nstages) {
-      const DStage st = decode(q);
-      const int slot = q % kDStages;
-      const long long ws = window_start(st);
-      const int need = kDM + (st.nt - 1) * g.dil;
-      if (span) {
-        // rows [ws, ws + need) x all O channels as they lie, from the 16-byte
-        // boundary at or before them; pieces outside the tensor read nothing
-        const char* src = reinterpret_cast<const char*>(dy);
-        const long long at0 = (ws * g.o * 2) & ~15LL;
-        const long long end = (long long)g.rows * g.o * 2;
-        const int pieces = (int)(((ws + need) * g.o * 2 - at0 + 15) / 16);
-        unsigned char* dst = rawsm + slot * lay.span;
-        for (int e = tid; e < pieces; e += kDThreads) {
-          const long long at = at0 + 16LL * e;
-          const int nb = at < 0 ? 0 : (int)max(0LL, min(16LL, end - at));
-          cp_async16(dst + 16 * e, nb > 0 ? src + at : src, nb);
-        }
-      } else {
-        unsigned short* dst = winsm + slot * args.win * WLD;
-        for (int e = tid; e < need * KP; e += kDThreads) {
-          const int i = e / KP, p = e % KP;
-          const long long row = ws + i;
-          const int ch = st.ch * KO + 8 * p;
-          const bool ok = row >= 0 && row < g.rows && ch < g.o;
-          if (args.dy_mode == kVec) {
-            cp_async16(dst + i * WLD + 8 * p, ok ? dy + row * g.o + ch : dy, ok ? 16 : 0);
-          } else {
-            *reinterpret_cast<uint4*>(dst + i * WLD + 8 * p) = load8(dy, row, ch, g.o, ok).u;
-          }
-        }
-      }
-      if (!args.resident) {
-        for (int j = 0; j < st.nt; ++j) {
-          stage_weight(wsm + (slot * args.taps + j) * TILE, st.a, st.b0 + j, st.ch, st.c0);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  if (args.resident) {  // the whole weight of the one c tile, once
-    for (int t = 0; t < g.kh * g.kw * args.chunks; ++t) {
-      stage_weight(wsm + t * TILE, t / args.chunks / g.kw, t / args.chunks % g.kw,
-                   t % args.chunks, 0);
-    }
-    cp_async_commit();
   }
-#pragma unroll
-  for (int q = 0; q < kDStages - 1; ++q) stage(q);
+  __syncthreads();
 
-  float acc[NH][NW / 2];  // set by each tile's first product
-#pragma unroll
-  for (int hn = 0; hn < NH; ++hn)
-#pragma unroll
-    for (int e = 0; e < NW / 2; ++e) acc[hn][e] = 0.f;
-  // image coordinates of this thread's two dx rows (rbase + g, + 8) of the
-  // current tile; a row past the end is never valid
-  int hlo = 0, wlo = 0, hhi = 0, whi = 0;
-  bool inlo = false, inhi = false;
-
-  for (int q = 0; q < nstages; ++q) {
-    cp_async_wait<kDStages - 2>();  // stage q has landed (this thread's copies)
-    fence_proxy_async();            // ... where the tensor cores read it
-    __syncthreads();                // everyone's copies; stage q-1 is done with
-    stage(q + kDStages - 1);        // into stage q-1's slot
-    const DStage st = decode(q);
-    const int slot = q % kDStages;
-    const unsigned short* win = winsm + slot * args.win * WLD;
-    if (span) {  // the raw span -> the window, zero past O
-      const int need = kDM + (st.nt - 1) * g.dil;
-      const long long ws = window_start(st);
-      const unsigned short* rs =
-          reinterpret_cast<const unsigned short*>(rawsm + slot * lay.span) +
-          ((ws * g.o * 2) & 15) / 2;
-      unsigned short* dst = winsm + slot * args.win * WLD;
-      for (int e = tid; e < need * KP; e += kDThreads) {
-        const int i = e / KP, p = e % KP;
-        Pack8 v;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int o = 8 * p + k;
-          v.s[k] = o < g.o ? rs[i * g.o + o] : 0;
-        }
-        *reinterpret_cast<uint4*>(dst + i * WLD + 8 * p) = v.u;
+  if (tid >= kDConsumers) {
+    // ---- producer warpgroup: the copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int ptid = tid - kDConsumers;
+    // the weight tile of tap (a, b), o chunk ch, c tile from c0 -> dst
+    auto stage_weight = [&](unsigned short* dst, int a, int b, int ch, int c0) {
+      const unsigned short* src = wt + (size_t)(a * g.kw + b) * g.c * args.ow;
+      for (int e = ptid; e < N * KP; e += kDProducers) {
+        const int n = e / KP, p = e % KP;
+        const int c = c0 + n, o = ch * KO + 8 * p;
+        const bool ok = c < g.c && o < args.ow;
+        cp_async16(dst + dy_at<KO>(n, p), ok ? src + (size_t)c * args.ow + o : wt,
+                   ok ? 16 : 0);
       }
-      __syncthreads();
+    };
+    if (args.resident) {  // the whole weight of the one c tile, once, with stage 0
+      for (int t = 0; t < g.kh * g.kw * args.chunks; ++t) {
+        stage_weight(wsm + t * TILE, t / args.chunks / g.kw, t / args.chunks % g.kw,
+                     t % args.chunks, 0);
+      }
     }
-    if (st.first) {
-      const int rlo = st.r0 + rbase + (lane >> 2), rhi = rlo + 8;
-      inlo = rlo < g.rows;
-      inhi = rhi < g.rows;
-      hlo = rlo / g.w % g.h;
-      wlo = rlo % g.w;
-      hhi = rhi / g.w % g.h;
-      whi = rhi % g.w;
-    }
-    const int dh = st.a * g.dil - g.pad;
-    const bool hlo_ok = inlo && hlo - dh >= 0 && hlo - dh < g.h;
-    const bool hhi_ok = inhi && hhi - dh >= 0 && hhi - dh < g.h;
-#ifdef FLAT_DGRAD_SKIP_PRODUCTS  // timing build of scripts/torch_dgrad_parts.py only
-    if (st.nt < 0)
+    // Iteration q issues stage q's copies (its dy window, and its weight
+    // tiles unless they are resident) into slot q % kDStages once the
+    // consumers have released it, then hands stage q-1 over: this thread's
+    // copies of it have landed, the raw span (where there is one) is laid
+    // out, and the fence orders the writes before the tensor cores' reads.
+    // Rows outside [0, rows) are zero-filled through the copy's source size
+    // 0 and never read.
+    for (int q = 0; q <= nstages; ++q) {
+      if (q < nstages) {
+        const int slot = q % kDStages;
+        if (q >= kDStages) mbar_wait(&empty[slot], (q / kDStages - 1) & 1);
+#ifdef FLAT_DGRAD_SKIP_COPIES  // timing build of scripts/torch_dgrad_parts.py only
+        if (q < kDStages) {
 #endif
-    for (int j0 = 0; j0 < st.nt; j0 += kDSubTaps) {
-      // this warp's A = dy fragments of k step ks for taps j0 .. j0+2, masked
-      // by select: registers 0 and 2 hold row g, registers 1 and 3 row g + 8
-      auto load_a = [&](uint32_t (&f)[kDSubTaps][4], int ks) {
-#pragma unroll
-        for (int j = 0; j < kDSubTaps; ++j) {
-          if (j0 + j >= st.nt) break;
-          const int b = st.b0 + j0 + j;
-          const int shift = (st.b0 + st.nt - 1 - b) * g.dil;
-          // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-          ldsm_x4(f[j], win + (rbase + mrow + (mat & 1) * 8 + shift) * WLD + ks * 16 +
-                            (mat >> 1) * 8);
-          const int dw = b * g.dil - g.pad;
-          if (!(hlo_ok && wlo - dw >= 0 && wlo - dw < g.w)) f[j][0] = f[j][2] = 0u;
-          if (!(hhi_ok && whi - dw >= 0 && whi - dw < g.w)) f[j][1] = f[j][3] = 0u;
-        }
-      };
-      uint32_t af[2][kDSubTaps][4];
-      load_a(af[0], 0);
-#pragma unroll
-      for (int ks = 0; ks < KO / 16; ++ks) {
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < kDSubTaps; ++j) {
-          if (j0 + j >= st.nt) break;
-          const int b = st.b0 + j0 + j;
-          const unsigned short* tile =
-              wsm + (args.resident ? (st.a * g.kw + b) * args.chunks + st.ch
-                                   : slot * args.taps + j0 + j) * TILE;
-          const uint32_t addr =
-              static_cast<uint32_t>(__cvta_generic_to_shared(tile)) + ks * 32;
-          // a tile's first product overwrites the accumulators: zeroing them
-          // by hand inside the pipeline would serialise the wgmma
-          const int accumulate = ks > 0 || j > 0 || j0 > 0 || !st.first;
-#pragma unroll
-          for (int hn = 0; hn < NH; ++hn) {
-            wgmma_k<NW>(acc[hn], af[ks & 1][j], wk_desc<KO>(addr + hn * NW * KO * 2),
-                        accumulate);
+        const DStage st = decode(q);
+        const long long ws = window_start(st);
+        const int need = kDM + (st.nt - 1) * g.dil;
+        if (span) {
+          // rows [ws, ws + need) x all O channels as they lie, from the
+          // 16-byte boundary at or before them; pieces outside the tensor
+          // read nothing
+          const char* src = reinterpret_cast<const char*>(dy);
+          const long long at0 = (ws * g.o * 2) & ~15LL;
+          const long long end = (long long)g.rows * g.o * 2;
+          const int pieces = (int)(((ws + need) * g.o * 2 - at0 + 15) / 16);
+          unsigned char* dst = rawsm + slot * lay.span;
+          for (int e = ptid; e < pieces; e += kDProducers) {
+            const long long at = at0 + 16LL * e;
+            const int nb = at < 0 ? 0 : (int)max(0LL, min(16LL, end - at));
+            cp_async16(dst + 16 * e, nb > 0 ? src + at : src, nb);
           }
-        }
-        wgmma_commit();
-        if (ks + 1 < KO / 16) {
-          wgmma_wait<1>();  // the group before this one read the other A set
-          load_a(af[(ks + 1) & 1], ks + 1);
-        }
-      }
-      wgmma_wait<0>();
-    }
-
-    if (st.last) {
-      // Epilogue: each warp rounds its 16 rows to bf16 into its own tile of
-      // shared memory, 64 channels at a time, and writes them back as whole
-      // 16-byte pieces of dx rows (8 lanes to a row's 128 bytes).
-      unsigned short* ep =
-          reinterpret_cast<unsigned short*>(base + lay.ep) + warp * 16 * kDEpLd;
-#pragma unroll
-      for (int j = 0; j < N / 64; ++j) {
-        const int hn = 64 * j / NW, e0 = 64 * j % NW / 2;
-#pragma unroll
-        for (int e = 0; e < 32; e += 2) {
-          // accumulator e0 + e: row g (+8 for e % 4 >= 2), column 8 (e / 4) + 2t
-          const int row = (lane >> 2) + ((e & 2) ? 8 : 0);
-          const int col = 8 * (e >> 2) + 2 * (lane & 3);
-          *reinterpret_cast<__nv_bfloat162*>(ep + row * kDEpLd + col) =
-              __floats2bfloat162_rn(acc[hn][e0 + e], acc[hn][e0 + e + 1]);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int piece = lane + 32 * m, row = piece >> 3, p = piece & 7;
-          const long long r = (long long)st.r0 + rbase + row;
-          const int c = st.c0 + 64 * j + 8 * p;
-          if (r < g.rows && c < g.c) {
-            const uint4 v = *reinterpret_cast<const uint4*>(ep + row * kDEpLd + 8 * p);
-            unsigned short* out = dx + r * g.c + c;
-            if ((g.c & 7) == 0) {
-              *reinterpret_cast<uint4*>(out) = v;
+        } else {
+          unsigned short* dst = winsm + slot * args.win * WLD;
+          for (int e = ptid; e < need * KP; e += kDProducers) {
+            const int i = e / KP, p = e % KP;
+            const long long row = ws + i;
+            const int ch = st.ch * KO + 8 * p;
+            const bool ok = row >= 0 && row < g.rows && ch < g.o;
+            if (args.dy_mode == kVec) {
+              cp_async16(dst + i * WLD + 8 * p, ok ? dy + row * g.o + ch : dy, ok ? 16 : 0);
             } else {
-              Pack8 pk;
-              pk.u = v;
-              for (int k = 0; k < 8 && c + k < g.c; ++k) out[k] = pk.s[k];
+              *reinterpret_cast<uint4*>(dst + i * WLD + 8 * p) =
+                  load8(dy, row, ch, g.o, ok).u;
             }
           }
         }
-        __syncwarp();
+        if (!args.resident) {
+          for (int j = 0; j < st.nt; ++j) {
+            stage_weight(wsm + (slot * args.taps + j) * TILE, st.a, st.b0 + j, st.ch,
+                         st.c0);
+          }
+        }
+#ifdef FLAT_DGRAD_SKIP_COPIES
+        }
+#endif
+        cp_async_commit();
+      }
+      if (q > 0) {
+        const int p = q - 1;
+        if (q < nstages) cp_async_wait<1>();
+        else cp_async_wait<0>();
+        if (span) {  // the raw span -> the window, zero past O
+          producer_sync();  // every producer thread's pieces have landed
+          const DStage st = decode(p);
+          const int slot = p % kDStages;
+          const int need = kDM + (st.nt - 1) * g.dil;
+          const long long ws = window_start(st);
+          const unsigned short* rs =
+              reinterpret_cast<const unsigned short*>(rawsm + slot * lay.span) +
+              ((ws * g.o * 2) & 15) / 2;
+          unsigned short* dst = winsm + slot * args.win * WLD;
+          for (int e = ptid; e < need * KP; e += kDProducers) {
+            const int i = e / KP, pc = e % KP;
+            Pack8 v;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int o = 8 * pc + k;
+              v.s[k] = o < g.o ? rs[i * g.o + o] : 0;
+            }
+            *reinterpret_cast<uint4*>(dst + i * WLD + 8 * pc) = v.u;
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[p % kDStages]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: the products and the epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int mat = lane >> 3;  // which 8x8 matrix this lane addresses
+    const int mrow = lane & 7;  // which of its rows
+    const int rbase = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's 16 dx rows
+    float acc[NH][NW / 2];  // set by each tile's first product
+#pragma unroll
+    for (int hn = 0; hn < NH; ++hn)
+#pragma unroll
+      for (int e = 0; e < NW / 2; ++e) acc[hn][e] = 0.f;
+    // image coordinates of this thread's two dx rows (rbase + g, + 8) of the
+    // current tile; a row past the end is never valid
+    int hlo = 0, wlo = 0, hhi = 0, whi = 0;
+    bool inlo = false, inhi = false;
+
+    for (int q = 0; q < nstages; ++q) {
+      const DStage st = decode(q);
+      const int slot = q % kDStages;
+      mbar_wait(&full[slot], (q / kDStages) & 1);
+      const unsigned short* win = winsm + slot * args.win * WLD;
+      if (st.first) {
+        const int rlo = st.r0 + rbase + (lane >> 2), rhi = rlo + 8;
+        inlo = rlo < g.rows;
+        inhi = rhi < g.rows;
+        hlo = rlo / g.w % g.h;
+        wlo = rlo % g.w;
+        hhi = rhi / g.w % g.h;
+        whi = rhi % g.w;
+      }
+      const int dh = st.a * g.dil - g.pad;
+      const bool hlo_ok = inlo && hlo - dh >= 0 && hlo - dh < g.h;
+      const bool hhi_ok = inhi && hhi - dh >= 0 && hhi - dh < g.h;
+#ifdef FLAT_DGRAD_SKIP_PRODUCTS  // timing build of scripts/torch_dgrad_parts.py only
+      if (st.nt < 0)
+#endif
+      for (int j0 = 0; j0 < st.nt; j0 += kDSubTaps) {
+        // this warp's A = dy fragments of k step ks for taps j0 .. j0+2,
+        // masked by select: registers 0 and 2 hold row g, 1 and 3 row g + 8
+        auto load_a = [&](uint32_t (&f)[kDSubTaps][4], int ks) {
+#pragma unroll
+          for (int j = 0; j < kDSubTaps; ++j) {
+            if (j0 + j >= st.nt) break;
+            const int b = st.b0 + j0 + j;
+            const int shift = (st.b0 + st.nt - 1 - b) * g.dil;
+            // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+            ldsm_x4(f[j], win + (rbase + mrow + (mat & 1) * 8 + shift) * WLD + ks * 16 +
+                              (mat >> 1) * 8);
+            const int dw = b * g.dil - g.pad;
+            if (!(hlo_ok && wlo - dw >= 0 && wlo - dw < g.w)) f[j][0] = f[j][2] = 0u;
+            if (!(hhi_ok && whi - dw >= 0 && whi - dw < g.w)) f[j][1] = f[j][3] = 0u;
+          }
+        };
+        uint32_t af[2][kDSubTaps][4];
+        load_a(af[0], 0);
+#pragma unroll
+        for (int ks = 0; ks < KO / 16; ++ks) {
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < kDSubTaps; ++j) {
+            if (j0 + j >= st.nt) break;
+            const int b = st.b0 + j0 + j;
+            const unsigned short* tile =
+                wsm + (args.resident ? (st.a * g.kw + b) * args.chunks + st.ch
+                                     : slot * args.taps + j0 + j) * TILE;
+            const uint32_t addr = smem_u32(tile) + ks * 32;
+            // a tile's first product overwrites the accumulators: zeroing
+            // them by hand inside the pipeline would serialise the wgmma
+            const int accumulate = ks > 0 || j > 0 || j0 > 0 || !st.first;
+#pragma unroll
+            for (int hn = 0; hn < NH; ++hn) {
+              wgmma_k<NW>(acc[hn], af[ks & 1][j], wk_desc<KO>(addr + hn * NW * KO * 2),
+                          accumulate);
+            }
+          }
+          wgmma_commit();
+          if (ks + 1 < KO / 16) {
+            wgmma_wait<1>();  // the group before this one read the other A set
+            load_a(af[(ks + 1) & 1], ks + 1);
+          }
+        }
+        wgmma_wait<0>();
+      }
+      mbar_arrive(&empty[slot]);  // this thread is done with the slot
+
+      if (st.last) {
+        // Epilogue: each warp rounds its 16 rows to bf16 into its own tile
+        // of shared memory, 64 channels at a time, and writes them back as
+        // whole 16-byte pieces of dx rows (8 lanes to a row's 128 bytes).
+        unsigned short* ep =
+            reinterpret_cast<unsigned short*>(base + lay.ep) + warp * 16 * kDEpLd;
+#pragma unroll
+        for (int j = 0; j < N / 64; ++j) {
+          const int hn = 64 * j / NW, e0 = 64 * j % NW / 2;
+#pragma unroll
+          for (int e = 0; e < 32; e += 2) {
+            // accumulator e0 + e: row g (+8 for e % 4 >= 2), column 8 (e / 4) + 2t
+            const int row = (lane >> 2) + ((e & 2) ? 8 : 0);
+            const int col = 8 * (e >> 2) + 2 * (lane & 3);
+            *reinterpret_cast<__nv_bfloat162*>(ep + row * kDEpLd + col) =
+                __floats2bfloat162_rn(acc[hn][e0 + e], acc[hn][e0 + e + 1]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int piece = lane + 32 * m, row = piece >> 3, p = piece & 7;
+            const long long r = (long long)st.r0 + rbase + row;
+            const int c = st.c0 + 64 * j + 8 * p;
+            if (r < g.rows && c < g.c) {
+              const uint4 v = *reinterpret_cast<const uint4*>(ep + row * kDEpLd + 8 * p);
+              unsigned short* out = dx + r * g.c + c;
+              if ((g.c & 7) == 0) {
+                *reinterpret_cast<uint4*>(out) = v;
+              } else {
+                Pack8 pk;
+                pk.u = v;
+                for (int k = 0; k < 8 && c + k < g.c; ++k) out[k] = pk.s[k];
+              }
+            }
+          }
+          __syncwarp();
+        }
       }
     }
   }
-  cp_async_wait<0>();
 }
 
 Geom make_geom(int n, int h, int w, int c, int o, int kh, int kw, int pad,
