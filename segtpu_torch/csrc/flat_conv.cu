@@ -95,13 +95,17 @@
 //     64-byte swizzle. Where there is one c tile and the whole weight fits
 //     beside the ring (stem_conv2, stem_conv3, the UperNet head), it is
 //     staged once per block and stays; otherwise each stage brings its taps'
-//     tiles. The wrapper pads the weight's O to a multiple of 8 with zeros;
-//   * staging: the producer's cp.async (16 bytes, .cg) into a ring of 3
-//     slots. mbarrier full[s] completes when the producer's 128 threads
-//     have seen their copies of slot s land (and fenced them for the tensor
-//     cores), empty[s] when the 256 consumer threads have read it. Rows
-//     outside [0, N*H*W) are zero-filled through the copy's source size 0,
-//     so NaN just outside dy cannot reach dx. O not a multiple of 8 (the
+//     tiles. The wrapper pads the weight's O to a multiple of 8 with zeros
+//     (the tensor map's row stride must be a multiple of 16 bytes);
+//   * staging into a ring of 3 slots: the weight tiles by TMA (one thread;
+//     a 3-d tensor map over (kh*kw, C, O) whose box is one tile, in the
+//     tile's swizzle, zero past C and O), the dy windows by the producer's
+//     cp.async (16 bytes, .cg). mbarrier full[s] completes when the
+//     producer's 128 threads have seen their copies of slot s land (and
+//     fenced them for the tensor cores) and the TMA bytes have arrived;
+//     empty[s] when the 256 consumer threads have read it. Rows outside
+//     [0, N*H*W) are zero-filled through the copy's source size 0, so NaN
+//     just outside dy cannot reach dx. O not a multiple of 8 (the
 //     head's 19): the window's rows are one contiguous span, copied from the
 //     16-byte boundary at or before it and laid out by the producer into
 //     the window, zero past O (K padded to 32); O past one chunk and not a
@@ -112,11 +116,13 @@
 //     C is not a multiple of 8). Rows past the end and channels past C are
 //     not written. No reduction across blocks.
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_dgrad_parts.py
-// times builds that skip the copies or the products): at stem_conv2,
-// stem_conv3 and the head the products (N = 64 wgmma at about 220-250
-// TFLOP/s); at layer4 and FPN.smooth_conv.0 the weight, restaged for every
-// stage (about 3.3 GB from L2), whose copies do not overlap the products.
+// times builds that skip the copies or the products): at stem_conv2 and
+// stem_conv3 the products (N = 64 wgmma at about 220-250 TFLOP/s); at the
+// head, layer4 and FPN.smooth_conv.0 the copies (at the two wide layers the
+// weight, restaged for every stage: about 3.3 GB from L2), which the
+// products now overlap.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -685,6 +691,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@!p bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
+// adds `bytes` to the transactions the current phase of `bar` waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// TMA: the box of `map` at coordinates (x, y, z) -> dst; its bytes count
+// against `bar`'s transactions when they land
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(x), "r"(y), "r"(z) : "memory");
+}
 // the producer warpgroup's own barrier (id 1; 0 is __syncthreads)
 __device__ __forceinline__ void producer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kDProducers) : "memory");
@@ -748,8 +769,8 @@ struct DStage {
 template <int N, int KO>
 __global__ void __launch_bounds__(kDThreads, 1)
 flat_dgrad(const unsigned short* __restrict__ dy,
-           const unsigned short* __restrict__ wt,
-           unsigned short* __restrict__ dx, DgradArgs args) {
+           unsigned short* __restrict__ dx, DgradArgs args,
+           const __grid_constant__ CUtensorMap wmap) {
   constexpr int NW = N < 128 ? N : 128;  // width of one wgmma
   constexpr int NH = N / NW;             // wgmmas per tap and k step
   constexpr int KP = KO / 8;             // 16-byte pieces of a staged row
@@ -807,20 +828,17 @@ flat_dgrad(const unsigned short* __restrict__ dy,
     // ---- producer warpgroup: the copies ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int ptid = tid - kDConsumers;
-    // the weight tile of tap (a, b), o chunk ch, c tile from c0 -> dst
-    auto stage_weight = [&](unsigned short* dst, int a, int b, int ch, int c0) {
-      const unsigned short* src = wt + (size_t)(a * g.kw + b) * g.c * args.ow;
-      for (int e = ptid; e < N * KP; e += kDProducers) {
-        const int n = e / KP, p = e % KP;
-        const int c = c0 + n, o = ch * KO + 8 * p;
-        const bool ok = c < g.c && o < args.ow;
-        cp_async16(dst + dy_at<KO>(n, p), ok ? src + (size_t)c * args.ow + o : wt,
-                   ok ? 16 : 0);
-      }
+    // the weight tile of tap (a, b), o chunk ch, c tile from c0 -> dst, by
+    // TMA: N rows x KO o in the swizzle dy_at<KO> describes, zero past C and
+    // past the weight's padded O
+    auto stage_weight = [&](unsigned short* dst, uint64_t* bar, int a, int b, int ch, int c0) {
+      tma_load_3d(dst, &wmap, bar, ch * KO, c0, a * g.kw + b);
     };
-    if (args.resident) {  // the whole weight of the one c tile, once, with stage 0
-      for (int t = 0; t < g.kh * g.kw * args.chunks; ++t) {
-        stage_weight(wsm + t * TILE, t / args.chunks / g.kw, t / args.chunks % g.kw,
+    if (args.resident && ptid == 0) {  // the whole weight of the one c tile, once
+      const int tiles = g.kh * g.kw * args.chunks;
+      mbar_expect_tx(&full[0], tiles * TILE * 2);
+      for (int t = 0; t < tiles; ++t) {
+        stage_weight(wsm + t * TILE, &full[0], t / args.chunks / g.kw, t / args.chunks % g.kw,
                      t % args.chunks, 0);
       }
     }
@@ -870,10 +888,11 @@ flat_dgrad(const unsigned short* __restrict__ dy,
             }
           }
         }
-        if (!args.resident) {
+        if (!args.resident && ptid == 0) {
+          mbar_expect_tx(&full[slot], st.nt * TILE * 2);
           for (int j = 0; j < st.nt; ++j) {
-            stage_weight(wsm + (slot * args.taps + j) * TILE, st.a, st.b0 + j, st.ch,
-                         st.c0);
+            stage_weight(wsm + (slot * args.taps + j) * TILE, &full[slot], st.a, st.b0 + j,
+                         st.ch, st.c0);
           }
         }
 #ifdef FLAT_DGRAD_SKIP_COPIES
@@ -1176,6 +1195,44 @@ int flat_conv_dgrad_occupancy(int o, int kh, int kw, int dil, int tile_c, int ko
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// The weight (kh*kw, C, ow) as a 3-d tensor map whose box is one tile of
+// the kernel: KO o x tile_c channels of one tap, in the 128-byte (KO = 64)
+// or 64-byte (KO = 32) swizzle, zero-filled past C and ow.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t weight_map(CUtensorMap* map, const void* wt, int c, int ow, int taps, int tile_c,
+                       int ko) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return e != cudaSuccess ? e : cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)ow, (cuuint64_t)c, (cuuint64_t)taps};
+  const cuuint64_t strides[2] = {(cuuint64_t)ow * 2, (cuuint64_t)c * ow * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)ko, (cuuint32_t)tile_c, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(wt),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            ko == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // dx (N, H, W, C) bf16 from bf16 dy (N, H, W, O) and the weight laid out
 // (kh, kw, C, ow), ow = O rounded up to a multiple of 8 (zeros past O).
 // Launches flat_dgrad<tile_c, ko> on `blocks` blocks that walk the tiles
@@ -1205,15 +1262,17 @@ int flat_conv_dgrad(const void* dy, const void* wt, void* dx, int n, int h,
   }
   a.tiles = (int)tiles;
   const int bytes = dgrad_smem(tile_c, ko, taps, dil, o, kh, kw, resident != 0).bytes;
+  CUtensorMap wmap;
+  const cudaError_t err = weight_map(&wmap, wt, c, ow, kh * kw, tile_c, ko);
+  if (err != cudaSuccess) return (int)err;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* dyp = static_cast<const unsigned short*>(dy);
-  const auto* wp = static_cast<const unsigned short*>(wt);
   auto* dxp = static_cast<unsigned short*>(dx);
   auto launch = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<blocks, kDThreads, bytes, s>>>(dyp, wp, dxp, a);
+    kernel<<<blocks, kDThreads, bytes, s>>>(dyp, dxp, a, wmap);
     return cudaGetLastError();
   };
   return (int)dgrad_dispatch(tile_c, ko, launch);
