@@ -984,11 +984,17 @@ flat_dgrad(const unsigned short* __restrict__ dy,
             if (!(hhi_ok && whi - dw >= 0 && whi - dw < g.w)) f[j][1] = f[j][3] = 0u;
           }
         };
-        uint32_t af[2][kDSubTaps][4];
-        load_a(af[0], 0);
+        // A sets in registers: at N = 64 (32 accumulators) all of the
+        // stage's k steps, loaded first and multiplied as one group; wider,
+        // two, loaded one k step ahead of the products
+        constexpr bool kAllA = N == 64;
+        uint32_t af[kAllA ? KO / 16 : 2][kDSubTaps][4];
+#pragma unroll
+        for (int ks = 0; ks < (kAllA ? KO / 16 : 1); ++ks) load_a(af[ks], ks);
 #pragma unroll
         for (int ks = 0; ks < KO / 16; ++ks) {
-          wgmma_fence();
+          const int set = kAllA ? ks : ks & 1;
+          if (!kAllA || ks == 0) wgmma_fence();
 #pragma unroll
           for (int j = 0; j < kDSubTaps; ++j) {
             if (j0 + j >= st.nt) break;
@@ -1002,16 +1008,19 @@ flat_dgrad(const unsigned short* __restrict__ dy,
             const int accumulate = ks > 0 || j > 0 || j0 > 0 || !st.first;
 #pragma unroll
             for (int hn = 0; hn < NH; ++hn) {
-              wgmma_k<NW>(acc[hn], af[ks & 1][j], wk_desc<KO>(addr + hn * NW * KO * 2),
+              wgmma_k<NW>(acc[hn], af[set][j], wk_desc<KO>(addr + hn * NW * KO * 2),
                           accumulate);
             }
           }
-          wgmma_commit();
-          if (ks + 1 < KO / 16) {
-            wgmma_wait<1>();  // the group before this one read the other A set
-            load_a(af[(ks + 1) & 1], ks + 1);
+          if (!kAllA) {
+            wgmma_commit();
+            if (ks + 1 < KO / 16) {
+              wgmma_wait<1>();  // the group before this one read the other A set
+              load_a(af[(ks + 1) & 1], ks + 1);
+            }
           }
         }
+        if (kAllA) wgmma_commit();
         wgmma_wait<0>();
       }
       mbar_arrive(&empty[slot]);  // this thread is done with the slot

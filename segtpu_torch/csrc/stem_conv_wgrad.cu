@@ -140,6 +140,7 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
         xs[i] = v;
       }
       __syncthreads();
+#pragma unroll 4
       for (int p = 0; p < tw; ++p) {
         const float4 d = *reinterpret_cast<const float4*>(dys + p * ct + 4 * lane);
         const float* xp = xs + 2 * p * ncs;
@@ -167,11 +168,11 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
       if (co % 4 == 0) {
         *reinterpret_cast<float4*>(dst) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (o + e < co) dst[e] = acc[i][e];
-        }
+      } else {  // constant indices only: acc stays in registers
+        dst[0] = acc[i][0];
+        if (o + 1 < co) dst[1] = acc[i][1];
+        if (o + 2 < co) dst[2] = acc[i][2];
+        if (o + 3 < co) dst[3] = acc[i][3];
       }
     }
   }
