@@ -10,8 +10,9 @@ Phases, each announced on its own line:
    nvcc each, all started together;
 3. kernel against plain: each kernel's wrapper on the card, at the main
    paths' shapes and the test shapes, held against its plain PyTorch
-   version: the stem weight gradient, and the flat-row wgrad and dgrad at
-   the seven test cases and five full-width layers of PSPNet and UperNet;
+   version: the stem weight gradient (also at shapes it once refused: tap
+   groups, padded o tiles), and the flat-row wgrad and dgrad at the seven
+   test cases and five full-width layers of PSPNet and UperNet;
 4. flat_conv: the flat-row kernels' own path. No model calls ``flat_conv``
    (segtpu's models do not either), so its launches are this phase's:
    forward and backward at PSPNet's stem_conv2 shape, with the counts set to

@@ -61,22 +61,27 @@ struct StemArgs {
 // Input columns a tile of kTileW output pixels reads for kc taps kw.
 __host__ __device__ inline int x_cols(int kc) { return 2 * kTileW + kc - 2; }
 
-template <int NT>
+// kBoxed false: one tap group of all k*k*C taps and one o tile of exactly
+// CO, CO a multiple of 4 (the main path's stem); the boxes' offsets are then
+// compile-time zeros, and the code the same as before there were boxes.
+template <int NT, bool kBoxed>
 __global__ void __launch_bounds__(kThreads)
 stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ dy,
                    float* __restrict__ partial, StemArgs g) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int k = g.k, c = g.c, co = g.co, ct = g.co_tile;
+  const int k = g.k, c = g.c, co = g.co, ct = kBoxed ? g.co_tile : co;
   // this block's tap group: taps kh0.., kw0.., c0.. of the box
   const int grp_id = blockIdx.y;
-  const int kh0 = grp_id / (g.gw * g.gc) * g.kr;
-  const int kw0 = grp_id / g.gc % g.gw * g.kc;
-  const int c0 = grp_id % g.gc * g.cs;
-  const int nkh = min(g.kr, k - kh0), nkw = min(g.kc, k - kw0), ncs = min(g.cs, c - c0);
-  const int o0 = blockIdx.z * ct;
-  const int xw = x_cols(g.kc);
+  const int kh0 = kBoxed ? grp_id / (g.gw * g.gc) * g.kr : 0;
+  const int kw0 = kBoxed ? grp_id / g.gc % g.gw * g.kc : 0;
+  const int c0 = kBoxed ? grp_id % g.gc * g.cs : 0;
+  const int nkh = kBoxed ? min(g.kr, k - kh0) : k;
+  const int nkw = kBoxed ? min(g.kc, k - kw0) : k;
+  const int ncs = kBoxed ? min(g.cs, c - c0) : c;
+  const int o0 = kBoxed ? blockIdx.z * ct : 0;
+  const int xw = x_cols(kBoxed ? g.kc : k);
   float* dys = smem;                  // [kTileW][co_tile]
   float* xs = smem + kTileW * ct;     // [nkh][xw][ncs]
 
@@ -109,7 +114,7 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
   const int r0 = blockIdx.x * g.rows_per_block;
   const int r1 = min(r0 + g.rows_per_block, rows);
   const int xcols = xw * ncs;
-  const bool whole_o = ct == co;  // one o tile, no padded lanes
+  const bool whole_o = !kBoxed || ct == co;  // one o tile, no padded lanes
   for (int r = r0; r < r1; ++r) {
     const int b = r / g.ho;
     const int oh = r % g.ho;
@@ -140,7 +145,6 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
         xs[i] = v;
       }
       __syncthreads();
-#pragma unroll 4
       for (int p = 0; p < tw; ++p) {
         const float4 d = *reinterpret_cast<const float4*>(dys + p * ct + 4 * lane);
         const float* xp = xs + 2 * p * ncs;
@@ -165,7 +169,7 @@ stem_wgrad_partial(const __nv_bfloat16* __restrict__ x,
     if (j < taps && o < co) {
       const int lh = j / (nkw * ncs), lw = j / ncs % nkw;
       float* dst = out + ((size_t)((kh0 + lh) * k + kw0 + lw) * c + c0 + j % ncs) * co + o;
-      if (co % 4 == 0) {
+      if (!kBoxed || co % 4 == 0) {
         *reinterpret_cast<float4*>(dst) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       } else {  // constant indices only: acc stays in registers
@@ -242,10 +246,15 @@ int stem_conv_wgrad(const void* x, const void* dy, void* partial, void* out,
   const auto* db = static_cast<const __nv_bfloat16*>(dy);
   float* target = static_cast<float*>(row_blocks == 1 ? out : partial);
   auto s = static_cast<cudaStream_t>(stream);
+  const bool boxed = grid.y > 1 || grid.z > 1 || co_tile != co || co % 4 != 0;
   switch (nt) {
-#define SEGTPU_NT(N)                                                    \
-  case N:                                                               \
-    stem_wgrad_partial<N><<<grid, kThreads, smem, s>>>(xb, db, target, a); \
+#define SEGTPU_NT(N)                                                            \
+  case N:                                                                       \
+    if (boxed) {                                                                \
+      stem_wgrad_partial<N, true><<<grid, kThreads, smem, s>>>(xb, db, target, a);  \
+    } else {                                                                    \
+      stem_wgrad_partial<N, false><<<grid, kThreads, smem, s>>>(xb, db, target, a); \
+    }                                                                           \
     break;
     SEGTPU_NT(1) SEGTPU_NT(2) SEGTPU_NT(3) SEGTPU_NT(4)
     SEGTPU_NT(5) SEGTPU_NT(6) SEGTPU_NT(7) SEGTPU_NT(8)
