@@ -116,11 +116,11 @@
 //     C is not a multiple of 8). Rows past the end and channels past C are
 //     not written. No reduction across blocks.
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_dgrad_parts.py
-// times builds that skip the copies or the products): at stem_conv2 and
-// stem_conv3 the products (N = 64 wgmma at about 220-250 TFLOP/s); at the
-// head, layer4 and FPN.smooth_conv.0 the copies (at the two wide layers the
-// weight, restaged for every stage: about 3.3 GB from L2), which the
-// products now overlap.
+// times builds that skip the copies or the products): the products, at
+// every full-width layer. Without its copies the kernel takes 0.34 of its
+// 0.39 ms at stem_conv2 (about 250 TFLOP/s at N = 64) and 0.62-0.64 of
+// 0.70-0.71 ms at layer4 and FPN.smooth_conv.0 (about 560 TFLOP/s at
+// N = 256); the copies, 0.25-0.49 ms alone, run under the products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
