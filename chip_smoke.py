@@ -11,8 +11,10 @@ Phases, each announced on its own line:
 3. kernel against plain: each kernel's wrapper on the card, at the main
    paths' shapes and the test shapes, held against its plain PyTorch
    version: the stem weight gradient (also at shapes it once refused: tap
-   groups, padded o tiles), and the flat-row wgrad and dgrad at the seven
-   test cases and five full-width layers of PSPNet and UperNet;
+   groups, padded o tiles; at several o tiles, and at pixel tiles that end
+   short of 64; launched twice at the main shape, bit for bit the same),
+   and the flat-row wgrad and dgrad at the seven test cases and five
+   full-width layers of PSPNet and UperNet;
 4. flat_conv: the flat-row kernels' own path. No model calls ``flat_conv``
    (segtpu's models do not either), so its launches are this phase's:
    forward and backward at PSPNet's stem_conv2 shape, with the counts set to
@@ -21,6 +23,8 @@ Phases, each announced on its own line:
 5. timings: kernel, plain version, the library call that computes the same
    function (timed only as a yardstick) and the bound (bytes or operations
    over the card's peak rate), for the stem kernel at its main-path shape
+   and at k 7 on the same x and dy width, each with its launch plan and how
+   the kernel's shared memory and the runtime's occupancy compare with it,
    and for both flat-row kernels at PSPNet's stem_conv2 and UperNet's head;
    the flat wgrad kernel also at the three other full-width layers (kernel,
    library and bound), with its launch plan (o tile, splits, blocks per SM,
@@ -71,7 +75,13 @@ TEST_SHAPES = [(2, 65, 65, 3, 64, 7), (1, 32, 48, 3, 16, 7),
                (2, 33, 47, 5, 16, 3),
                # shapes the kernel once refused (tap groups, padded o tiles)
                (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3), (2, 33, 47, 5, 19, 3),
-               (1, 17, 17, 64, 64, 7)]
+               (1, 17, 17, 64, 64, 7),
+               # several o tiles at Wo < 64; 64-pixel tiles that end short at Wo 129
+               (1, 9, 9, 3, 600, 3), (2, 257, 257, 3, 64, 3)]
+# the stem kernel's timed shapes: the main path's, and k 7 on the same x
+# and dy width
+STEM_TIMED = {MAIN_SHAPE: "PSPNet-R50 stem (main path)",
+              (8, 769, 769, 3, 64, 7): "the same x and dy width at k 7"}
 # flat-row conv shapes (n, h, w, c, o, k, p, d): the cases of
 # tests/test_flatconv.py, then the full-width layers of the two models
 FLAT_TEST_CASES = [
@@ -441,6 +451,12 @@ def main():
         check(err < WGRAD_REL_TOL, f"stem_conv_wgrad disagrees at {shape}: {err}")
         if shape == MAIN_SHAPE:
             main_err = abs_err
+            again = cw.stem_conv_wgrad(x, dy, kernel=k)
+            torch.cuda.synchronize()
+            print(f"stem_conv_wgrad {shape}: two launches bit-identical: "
+                  f"{torch.equal(again, got)}")
+            check(torch.equal(again, got), "two launches of stem_conv_wgrad differ")
+            del again
         del x, dy, got, ref
     flat_err = {}
     for i, case in enumerate(FLAT_TEST_CASES + list(FLAT_FULL_SHAPES)):
@@ -496,27 +512,52 @@ def main():
     torch.cuda.empty_cache()
 
     phase("timings")
-    n, h, w, c, co, k = MAIN_SHAPE
-    x, dy = wgrad_inputs(MAIN_SHAPE, 100, dev)
-    xb, dyb = x.bfloat16(), dy.bfloat16()
-    del x, dy
-    ho, wo = dyb.shape[1], dyb.shape[2]
-    kernel_ms = cuda_ms(lambda: cw.stem_conv_wgrad(xb, dyb, kernel=k), iters=20)
-    plain_ms = cuda_ms(lambda: cw.stem_conv_wgrad_plain(xb, dyb, kernel=k), iters=5)
-    x_nchw, dy_nchw = xb.permute(0, 3, 1, 2), dyb.permute(0, 3, 1, 2)
-    library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-        x_nchw, (co, c, k, k), dy_nchw, stride=2, padding=k // 2), iters=20)
-    nbytes = xb.numel() * 2 + dyb.numel() * 2 + k * k * c * co * 4
-    flops = 2 * n * ho * wo * k * k * c * co
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"stem_conv_wgrad at {MAIN_SHAPE}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library (conv2d_weight, cuDNN) {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP) [{card}]")
-    del xb, dyb, x_nchw, dy_nchw
-    stem_shape = {"x": [n, h, w, c], "dy": [n, ho, wo, co], "k": k}
-    stem_times = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": bound_by, "library_ms": library_ms}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stem_times = []
+    for shape, label in STEM_TIMED.items():
+        n, h, w, c, co, k = shape
+        x, dy = wgrad_inputs(shape, 100, dev)
+        xb, dyb = x.bfloat16(), dy.bfloat16()
+        del x, dy
+        ho, wo = dyb.shape[1], dyb.shape[2]
+        plan, per_sm, smem = cw.stem_launch_plan(xb.shape, co, k, dev)
+        ring = (c, plan.kr, plan.kc, plan.cs, int(plan.span), plan.stages)
+        kernel_smem = cw._lib().stem_conv_wgrad_smem_bytes(*ring)
+        blocks = plan.row_blocks * plan.tap_groups * plan.o_tiles
+        print(f"stem_conv_wgrad launch at {shape} ({label}): {plan}; shared memory "
+              f"a block {smem} bytes by the plan, {kernel_smem} by the kernel; "
+              f"{per_sm} blocks per SM by the runtime's occupancy, {blocks} blocks "
+              f"on {sms} SMs ({blocks / (sms * per_sm):.3f} of one wave)", flush=True)
+        check(kernel_smem == smem, f"the plan's shared memory {smem} is not the "
+              f"kernel's {kernel_smem} at {shape}")
+        # the kernel (and the reduction of its partials) launched on buffers
+        # made once; and per call of the wrapper, its host time included
+        out = torch.empty((k, k, c, co), dtype=torch.float32, device=dev)
+        partial = torch.empty((plan.row_blocks, k * k * c, co), dtype=torch.float32,
+                              device=dev)
+        kernel_ms = cuda_ms(lambda: cw._launch(cw._lib(), xb, dyb, k, plan, partial, out),
+                            iters=20)
+        wrapper_ms = cuda_ms(lambda: cw.stem_conv_wgrad(xb, dyb, kernel=k), iters=20)
+        plain_ms = cuda_ms(lambda: cw.stem_conv_wgrad_plain(xb, dyb, kernel=k), iters=5)
+        x_nchw, dy_nchw = xb.permute(0, 3, 1, 2), dyb.permute(0, 3, 1, 2)
+        library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            x_nchw, (co, c, k, k), dy_nchw, stride=2, padding=k // 2), iters=20)
+        nbytes = xb.numel() * 2 + dyb.numel() * 2 + k * k * c * co * 4
+        flops = 2 * n * ho * wo * k * k * c * co
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"stem_conv_wgrad at {shape} ({label}): kernel {kernel_ms:.4f} ms a launch "
+              f"({wrapper_ms:.4f} ms a call of the wrapper), plain "
+              f"{plain_ms:.4f} ms, library (conv2d_weight, cuDNN) {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) [{card}]", flush=True)
+        stem_times.append({
+            "layer": label, "shape": {"x": [n, h, w, c], "dy": [n, ho, wo, co], "k": k},
+            "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "plan": plan._asdict(),
+            "blocks_per_sm": per_sm, "smem_bytes": smem})
+        del xb, dyb, x_nchw, dy_nchw, out, partial
+        torch.cuda.empty_cache()
 
     flat_times = {"flat_conv_wgrad": [], "flat_conv_dgrad": []}
     for case, layer in FLAT_FULL_SHAPES.items():
@@ -684,12 +725,16 @@ def main():
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
                  "are those of the flat_conv phase, 0 on both models' main paths")
+    stem_main = stem_times[0]
     kernels = [{
         "name": "stem_conv_wgrad", "route": "cuda",
         "source": "segtpu_torch/csrc/stem_conv_wgrad.cu",
         "replaces": "segtpu/ops/conv_wgrad.py:138",
-        "shape": stem_shape, "launches": psp_launches["stem_conv_wgrad"],
-        "max_abs_err": main_err, **stem_times}]
+        "shape": stem_main["shape"], "launches": psp_launches["stem_conv_wgrad"],
+        "max_abs_err": main_err,
+        **{key: stem_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+        "timings": stem_times}]
     for name, line, idx in (("flat_conv_wgrad", "segtpu/ops/flatconv.py:168", 0),
                             ("flat_conv_dgrad", "segtpu/ops/flatconv.py:205", 1)):
         first = flat_times[name][0]

@@ -19,12 +19,14 @@ from segtpu_torch.ops import conv_wgrad as cw
 from segtpu_torch.ops import flatconv as fc
 
 # stem weight gradient: n, h, w, c, co, k (tests/test_conv_wgrad.py's shapes
-# and the main path's, then shapes that take tap groups, a padded o tile, a
-# direct write with no partial buffer and several o tiles)
+# and the main path's, then shapes that take tap groups, a padded o tile,
+# dy by plain loads (CO = 19: CO * 2 is no multiple of 16), gathered
+# channels (C = 64 at k = 7), several o tiles, Wo < 64, and Wo = 129, where
+# 64-pixel tiles end short at a width like the main path's)
 STEM_SHAPES = [(2, 65, 65, 3, 64, 7), (1, 32, 48, 3, 16, 7), (2, 64, 64, 4, 32, 7),
                (2, 65, 65, 3, 64, 3), (2, 33, 47, 5, 16, 3), (8, 769, 769, 3, 64, 3),
                (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3), (2, 33, 47, 5, 19, 3),
-               (1, 17, 17, 64, 64, 7), (1, 9, 9, 3, 600, 3)]
+               (1, 17, 17, 64, 64, 7), (1, 9, 9, 3, 600, 3), (2, 257, 257, 3, 64, 3)]
 # flat-row conv: n, h, w, c, o, k, p, d (tests/test_flatconv.py's cases)
 FLAT_CASES = [
     (2, 33, 33, 64, 64, 3, 1, 1), (2, 33, 33, 64, 128, 3, 1, 1),
@@ -70,9 +72,49 @@ def test_stem_wgrad_kernel_matches_plain(shape, cuda_device):
 @pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_plan_shared_memory_is_the_kernels(shape, cuda_device):
     n, h, w, c, co, k = shape
-    plan = cw.stem_wgrad_plan(n, (h + 2 * (k // 2) - k) // 2 + 1, c, co, k, sms=132)
-    box = (plan.co_tile, plan.kr, plan.kc, plan.cs)
-    assert cw._lib().stem_conv_wgrad_smem_bytes(*box) == cw.smem_bytes(*box)
+    plan, per_sm, smem = cw.stem_launch_plan((n, h, w, c), co, k, cuda_device)
+    ring = (c, plan.kr, plan.kc, plan.cs, int(plan.span), plan.stages)
+    assert cw._lib().stem_conv_wgrad_smem_bytes(*ring) == cw.smem_bytes(*ring) == smem
+    assert per_sm >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 769, 769, 3, 64, 3), (2, 33, 47, 5, 19, 3),
+                                   (1, 17, 17, 64, 64, 7)])
+def test_stem_wgrad_two_launches_are_bit_identical(shape, cuda_device):
+    """Fixed-order sums and no atomics: the same inputs give the same bits."""
+    n, h, w, c, co, k = shape
+    ho, wo = (h + 2 * (k // 2) - k) // 2 + 1, (w + 2 * (k // 2) - k) // 2 + 1
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.normal(size=(n, ho, wo, co)).astype(np.float32)).to(cuda_device)
+    first = cw.stem_conv_wgrad(x, dy, kernel=k)
+    second = cw.stem_conv_wgrad(x, dy, kernel=k)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_stem_wgrad_takes_inputs_that_start_off_16_bytes(cuda_device):
+    """x and dy that start 2 bytes past a 16-byte boundary: x (whose rows the
+    kernel copies by 16 bytes) is copied once, dy (no tensor map fits it)
+    goes through the producer's 2-byte loads."""
+    n, h, w, c, co, k = 2, 65, 65, 3, 64, 3
+    rng = np.random.default_rng(7)
+
+    def off_by_one(shape):
+        flat = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device=cuda_device)
+        t = flat[1:].view(shape)
+        t.copy_(torch.from_numpy(rng.normal(size=shape).astype(np.float32)))
+        return t
+
+    x, dy = off_by_one((n, h, w, c)), off_by_one((n, 33, 33, co))
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    before = cw.stem_conv_wgrad.copies
+    got = cw.stem_conv_wgrad(x, dy, kernel=k)
+    torch.cuda.synchronize()
+    assert cw.stem_conv_wgrad.copies == before + 1
+    assert _rel_max(got, cw.stem_conv_wgrad_plain(x, dy, k)) < WGRAD_TOL
 
 
 def _flat_inputs(case, seed, device):

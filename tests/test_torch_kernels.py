@@ -52,21 +52,24 @@ def test_plain_matches_segtpu_pallas_kernel(shape):
     assert rel_max(got.numpy(), want) < REL_TOL
 
 
+def _out(size, k):
+    return (size + 2 * (k // 2) - k) // 2 + 1
+
+
 @pytest.mark.parametrize("shape", [
     (8, 769, 769, 3, 64, 3), (1, 33, 33, 6, 64, 7), (1, 33, 33, 3, 48, 3),
     (2, 33, 47, 5, 19, 3), (1, 17, 17, 64, 64, 7), (1, 9, 9, 3, 600, 3)])
 def test_stem_plan_covers_every_tap_and_o_once_and_bounds_the_partials(shape):
     """Walk the grid as the kernel does: every (kh, kw, c, o) of dW is owned
-    by exactly one tap group and o tile, every output row by one row block;
-    each thread holds at most 16 taps, each block fits the shared memory a
-    launch takes without opting in, and the partial buffer stays under its
-    cap (or is not used)."""
+    by exactly one tap group and o tile, every pixel tile by one row block;
+    each box fits its warps' n8 tiles, the ring fits a block's share of an
+    SM, the grid is one wave, and the partial buffer stays under its cap
+    (or is not used)."""
     n, h, w, c, co, k = shape
-    ho = (h + 2 * (k // 2) - k) // 2 + 1
-    plan = cw.stem_wgrad_plan(n, ho, c, co, k, sms=132)
-    threads_per_o = plan.co_tile // 4
-    assert 4 <= plan.co_tile <= cw.MAX_CO_TILE and cw.THREADS % threads_per_o == 0
-    assert plan.o_tiles * plan.co_tile >= co > (plan.o_tiles - 1) * plan.co_tile
+    ho, wo = _out(h, k), _out(w, k)
+    plan = cw.stem_wgrad_plan(n, ho, wo, c, co, k, sms=132, per_sm=4)
+    assert 1 <= plan.nt <= cw.MAX_NT
+    assert plan.o_tiles * cw.TILE_O >= co > (plan.o_tiles - 1) * cw.TILE_O
     gh, gw, gc = -(-k // plan.kr), -(-k // plan.kc), -(-c // plan.cs)
     assert plan.tap_groups == gh * gw * gc
     owned = np.zeros((k, k, c, co), np.int64)
@@ -75,20 +78,46 @@ def test_stem_plan_covers_every_tap_and_o_once_and_bounds_the_partials(shape):
         kw0 = grp // gc % gw * plan.kc
         c0 = grp % gc * plan.cs
         box = (min(plan.kr, k - kh0), min(plan.kc, k - kw0), min(plan.cs, c - c0))
-        assert np.prod(box) <= plan.nt * (cw.THREADS // threads_per_o)
+        assert np.prod(box) <= 8 * cw.WARPS * plan.nt
         for o_tile in range(plan.o_tiles):
-            o0 = o_tile * plan.co_tile
+            o0 = o_tile * cw.TILE_O
             owned[kh0:kh0 + box[0], kw0:kw0 + box[1], c0:c0 + box[2],
-                  o0:o0 + plan.co_tile] += 1
+                  o0:o0 + cw.TILE_O] += 1
     assert (owned == 1).all()
-    assert 1 <= plan.nt <= cw.MAX_TAPS_PER_THREAD
-    assert cw.smem_bytes(plan.co_tile, plan.kr, plan.kc, plan.cs) <= cw.SMEM_LIMIT
-    rows = n * ho
-    starts = range(0, rows, plan.rows_per_block)
-    assert len(starts) == plan.row_blocks and plan.row_blocks * plan.rows_per_block >= rows
-    assert plan.row_blocks == 1 or plan.row_blocks * k * k * c * co <= cw.MAX_PARTIAL_FLOATS
-    if shape == (8, 769, 769, 3, 64, 3):  # the main path: one tap group, 514 row blocks
-        assert plan == (64, 3, 3, 3, 2, 1, 1, 6, 514)
+    assert 2 <= plan.stages <= cw.MAX_STAGES
+    smem = cw.smem_bytes(c, plan.kr, plan.kc, plan.cs, plan.span, plan.stages)
+    assert 4 * (smem + 1024) <= cw.SMEM_PER_SM
+    # the box fits a ring of MIN_STAGES slots in a two-block share
+    ring = cw.smem_bytes(c, plan.kr, plan.kc, plan.cs, plan.span, cw.MIN_STAGES)
+    assert ring <= cw.SMEM_TARGET <= cw.SMEM_LIMIT
+    tiles = n * ho * -(-wo // cw.TILE_P)
+    walked = [t for rb in range(plan.row_blocks)
+              for t in range(rb * tiles // plan.row_blocks,
+                             (rb + 1) * tiles // plan.row_blocks)]
+    assert walked == list(range(tiles))
+    assert plan.row_blocks == 1 or (
+        plan.row_blocks * plan.tap_groups * plan.o_tiles <= 132 * 4
+        and plan.row_blocks * k * k * c * co <= cw.MAX_PARTIAL_FLOATS)
+    if shape == (8, 769, 769, 3, 64, 3):
+        # the main path: one box of all 27 taps (one n8 tile a warp), whole-C
+        # spans, four blocks an SM, each with a ring of five 10.6 KB slots
+        assert plan == (1, 3, 3, 3, True, 5, 1, 1, 528)
+        assert smem == 53984
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1, 9, 9, 3, 600, 3)])
+def test_stem_wgrad_tiling_matches_plain(shape):
+    """The kernel's walk of its plan (pixel tiles, tap groups, o tiles, the
+    padding of taps and of CO, the fixed-order sum of the partials), in
+    float32 on bf16-rounded inputs, is the plain version up to the order of
+    fp32 sums."""
+    x, dy, k = _inputs(shape)
+    n, h, w, c, co, _ = shape
+    plan = cw.stem_wgrad_plan(n, _out(h, k), _out(w, k), c, co, k, sms=132, per_sm=4)
+    got = cw.stem_wgrad_tiling(torch.from_numpy(x), torch.from_numpy(dy), k, plan)
+    want = cw.stem_conv_wgrad_plain(torch.from_numpy(x), torch.from_numpy(dy), k)
+    assert got.shape == want.shape
+    assert rel_max(got.numpy(), want.numpy()) <= 1e-5
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
