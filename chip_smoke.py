@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (segtpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout; one GPU
+    python3 chip_smoke.py [--seed N]   # from the root of a checkout; one GPU
 
 Phases, each announced on its own line:
 
@@ -32,10 +32,18 @@ Phases, each announced on its own line:
 6. PSPNet main path: ``segtpu_torch.train.main`` trains PSPNet-ResNet50 (19
    classes, 769x769 crops, batch 8, bf16 autocast, stem weight gradient
    through the kernel) for a few steps plus a validation pass, with every
-   kernel's launch count set to 0 just before and read just after; then
-   times the train step on one device-resident batch, and traces a few
-   more steps with torch.profiler for the device time by kernel category
-   and the device's idle share, under the same flags;
+   kernel's launch count set to 0 just before and read just after, writing
+   checkpoint-latest after step 2 and checkpoint-epoch1 and best_model at
+   the end;
+   checkpoint and resume: checkpoint-epoch1 loads back into a fresh state
+   bit for bit (model, optimizer, update count), with its size and its save
+   and load times; a run resumed from checkpoint-latest takes the epoch's
+   last two steps on the uninterrupted run's batches, at its first rate,
+   with its losses within RESUME_LOSS_TOL and one stem launch a step (the
+   counts set to 0 just before it and read just after);
+   then the main path times the train step on one device-resident batch,
+   and traces a few more steps with torch.profiler for the device time by
+   kernel category and the device's idle share, under the same flags;
 7. PSPNet in-step check, from the same weights: in a bf16 step and in an
    fp32 step, the stem conv's weight gradient against the plain version on
    that step's own x and dy; on two batches, the fp32 gradient with the
@@ -45,14 +53,26 @@ Phases, each announced on its own line:
    step, against the plain versions. Two bf16 steps are not held to each
    other: the same bf16 step run twice gives another upstream gradient, and
    the script prints how far the stem gradient moves;
-8. UperNet main path, after the PSPNet trainer is freed: UperNet-ResNet101
+8. inference: the inference CLI (``segtpu_torch.inference.main``) on
+   best_model, in sliding and multiscale mode, fp32 and bf16, on two
+   1024x2048 RGB PNGs made from ``--seed``; each written class map reads
+   back equal to the library call's; seconds per image, tiles and forwards,
+   peak memory, and the share of pixels on which bf16 and fp32 agree; the
+   fp32 sliding canvas against the plain tile-by-tile loop, within INFER_TOL;
+   serving export: best_model exported by ``torch.export`` at batch 1 and
+   769x769 for cuda, reloaded, and run on a seeded uint8 batch beside the
+   eager serve module (predictions equal where the top-two margin exceeds
+   SERVE_TOL, confidences within it); the export time, the artifact's size;
+   neither path launches a kernel (the stem kernel is a backward);
+9. UperNet main path, after the PSPNet trainer is freed: UperNet-ResNet101
    (output stride 16, fpn_out 256, the same data, optimizer and dtype)
    trained, timed and traced as in phase 6;
-9. UperNet in-step check: both flat-row kernels on the x, dy and weight of
+10. UperNet in-step check: both flat-row kernels on the x, dy and weight of
    ``head`` and ``FPN.smooth_conv.0`` from one bf16 step, against the plain
    versions, with cuDNN's own gradients printed beside them (not gated);
-10. the ``kernels`` JSON line, then the card's name and power limit, then
-    ``{"ok": true, "device": {...}}`` as the last line.
+11. the ``kernels`` JSON line (each kernel's launches on every path above),
+    then the card's name and power limit, then ``{"ok": true, "device":
+    {...}}`` as the last line.
 
 Any failure raises and exits non-zero; without a GPU it exits non-zero
 before printing any result.
@@ -60,12 +80,17 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
@@ -110,6 +135,18 @@ DGRAD_REL_TOL = 2.0 ** -7
 GRAD_REL_TOL = 2e-2
 STEPS = 4
 BATCH, CROP, CLASSES = 8, 769, 19
+# the losses of the resumed steps against the uninterrupted run's, relative:
+# the first is taken from the same state, batch and dropout masks; the second
+# after one backward whose atomic adds sum in another order
+RESUME_LOSS_TOL = 1e-2
+FRAME = (1024, 2048)  # the inference phase's images, a CityScapes frame
+# the sliding canvas against the plain tile-by-tile loop, relative to the
+# largest logit: fp32 (TF32 off), batch-16 against batch-1 forwards (the CPU
+# tests' tolerance against segtpu)
+INFER_TOL = 1e-4
+# exported program against the eager serve module: max |confidence
+# difference|, and the top-two margin below which a prediction may differ
+SERVE_TOL = 1e-3
 TIMED_STEPS, TRACED_STEPS = 5, 3
 # kernel-name substrings -> category of the traced step, first match wins
 CATEGORIES = [
@@ -214,7 +251,7 @@ def check_flat(label, x, dy, wk, k, p, d):
     return abs_w, abs_d
 
 
-def smoke_config(arch):
+def smoke_config(arch, save_dir, save_period=10, save_per_iters=0):
     synthetic = {"num_classes": CLASSES, "batch_size": BATCH, "crop_size": CROP,
                  "num_workers": 8, "device_normalize": True}
     return {
@@ -231,7 +268,9 @@ def smoke_config(arch):
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
-                    "monitor": "max Mean_IoU", "compute_dtype": "bfloat16"},
+                    "monitor": "max Mean_IoU", "compute_dtype": "bfloat16",
+                    "save_dir": save_dir, "save_period": save_period,
+                    "save_per_iters": save_per_iters},
     }
 
 
@@ -298,23 +337,26 @@ def read_launches():
             for fn in (cw.stem_conv_wgrad, fc.flat_conv_wgrad, fc.flat_conv_dgrad)}
 
 
-def train_main_path(label, arch, want_launches, card):
-    """Train ``arch`` through ``segtpu_torch.train.main`` with the launch
-    counts set to 0 just before and read just after; check the epoch log and
-    an eval step; time and trace the train step. Returns (trainer, launches,
-    one device-resident train batch, one val batch)."""
+def train_main_path(label, config, want_launches, card, recorder, after_train=None):
+    """Train ``config`` through ``segtpu_torch.train.main`` with the launch
+    counts set to 0 just before and read just after, its steps recorded;
+    check the epoch log; call ``after_train(trainer)``; check an eval step;
+    time and trace the train step (outside the recorded run). Returns
+    (trainer, launches, one device-resident train batch, one val batch)."""
     import torch
 
     from segtpu_torch import train as train_cli
     from segtpu_torch.trainer import _to_device
 
     dev = torch.device("cuda")
+    recorder.start()
     reset_launches()
     t0 = time.perf_counter()
-    trainer = train_cli.main(smoke_config(arch), "cuda")
+    trainer = train_cli.main(config, "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    recorder.stop()
     print(f"trainer: {trainer.state.step} steps + validation in {wall:.1f} s "
           f"(model build and data included); launches {launches}")
     check(trainer.state.step == STEPS, f"{trainer.state.step} steps, want {STEPS}")
@@ -327,6 +369,12 @@ def train_main_path(label, arch, want_launches, card):
           f"non-finite loss {log}")
     check(0.0 <= log["Mean_IoU"] <= 1.0 and 0.0 <= log["Pixel_Accuracy"] <= 1.0,
           f"metrics out of range {log}")
+    check([r["stem_launches"] for r in recorder.steps]
+          == [want_launches["stem_conv_wgrad"] // STEPS] * STEPS,
+          f"stem kernel launches per step {recorder.steps}")
+    if after_train is not None:
+        after_train(trainer)
+        phase(f"main path: {label}, timed")
 
     val_images, val_labels = _to_device(next(iter(trainer.val_loader)), dev)
     loss, stats = trainer.eval_step(trainer.model, val_images, val_labels)
@@ -407,12 +455,382 @@ def step_backward(trainer, model, state, images, labels, dtype):
     loss.backward()
 
 
-def main():
+class StepRecorder:
+    """Wraps the train steps that ``segtpu_torch.trainer`` builds; between
+    ``start()`` and ``stop()`` each step records its update count, a
+    fingerprint of its batch, its learning rates, its loss and the stem
+    kernel's launches in it (the float(loss) read syncs; timed steps run
+    outside, where the wrapper only passes through)."""
+
+    def __init__(self):
+        import segtpu_torch.trainer as trainer_mod
+
+        self.steps, self.on = [], False
+        make = trainer_mod.make_train_step
+
+        def make_recorded(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def recorded(state, images, labels):
+                if not self.on:
+                    return step(state, images, labels)
+                from segtpu_torch.ops import conv_wgrad as cw
+
+                before = cw.stem_conv_wgrad.launches
+                loss, stats = step(state, images, labels)
+                sample = (labels[:, ::7, ::7].cpu().numpy().tobytes()
+                          + images[:, ::7, ::7].cpu().numpy().tobytes())
+                self.steps.append({
+                    "step": state.step, "batch": zlib.crc32(sample),
+                    "lrs": [g["lr"] for g in state.optimizer.param_groups],
+                    "loss": float(loss),
+                    "stem_launches": cw.stem_conv_wgrad.launches - before})
+                return loss, stats
+
+            return recorded
+
+        trainer_mod.make_train_step = make_recorded
+
+    def start(self):
+        self.steps, self.on = [], True
+
+    def stop(self):
+        self.on = False
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def same_state(a, b):
+    """Model tensors, momentum buffers, update count and the optimizer's
+    hyperparameters of two TrainStates, bit for bit."""
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    opt_a, opt_b = a.optimizer, b.optimizer
+    params_a = [p for g in opt_a.param_groups for p in g["params"]]
+    params_b = [p for g in opt_b.param_groups for p in g["params"]]
+    groups = [{k: v for k, v in g.items() if k != "params"} for g in opt_a.param_groups]
+    return (a.step == b.step and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and len(params_a) == len(params_b)
+            and all(torch.equal(opt_a.state[pa]["momentum_buffer"],
+                                opt_b.state[pb]["momentum_buffer"])
+                    for pa, pb in zip(params_a, params_b))
+            and groups == [{k: v for k, v in g.items() if k != "params"}
+                           for g in opt_b.param_groups])
+
+
+def checkpoint_and_resume(trainer, config, recorder, workdir, card):
+    """The main path's checkpoints: checkpoint-epoch1 loads back bit for bit
+    into a fresh state; a resume from the mid-epoch checkpoint-latest runs
+    the epoch's remaining steps on the same batches, at the same first rate,
+    with losses within RESUME_LOSS_TOL, one stem launch a step. Returns the
+    resumed run's launches and the checkpoint's numbers."""
+    import copy
+
+    import torch
+
+    from segtpu_torch import train as train_cli
+    from segtpu_torch.checkpoint import load_checkpoint, read_meta, save_checkpoint
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.models import get_model
+
+    run_dir = trainer.checkpoint_dir
+    names = sorted(os.listdir(run_dir))
+    print(f"run directory {run_dir}: {names}")
+    check({"config.json", "checkpoint-epoch1", "checkpoint-latest", "best_model"}
+          <= set(names), f"the run wrote {names}")
+    epoch1 = os.path.join(run_dir, "checkpoint-epoch1")
+    size = dir_bytes(epoch1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = save_checkpoint(workdir, "timed-save", trainer.state, 1, trainer.mnt_best,
+                            config, "PSPNet")
+    save_s = time.perf_counter() - t0
+    shutil.rmtree(timed)
+    opt_cfg = config["optimizer"]
+    model = get_model("PSPNet", device="cuda", seed=1, num_classes=CLASSES,
+                      **config["arch"]["args"])
+    opt, schedules = make_optimizer(model, differential_lr=opt_cfg["differential_lr"],
+                                    num_epochs=1, iters_per_epoch=STEPS,
+                                    **opt_cfg["args"])
+    fresh = TrainState(model, opt, schedules)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = load_checkpoint(epoch1, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    identical = same_state(fresh, trainer.state)
+    print(f"checkpoint-epoch1: {size / 1e6:.1f} MB (model, SGD momentum, update "
+          f"count, generators), save {save_s:.2f} s, load {load_s:.2f} s; loads back "
+          f"bit-identical to the live state (model, optimizer, update count "
+          f"{fresh.step}): {identical} [{card}]", flush=True)
+    check(identical, "checkpoint-epoch1 does not load back to the live state")
+    check(meta["epoch"] == 1 and meta["arch"] == "PSPNet", f"meta {meta}")
+    del fresh, model, opt
+
+    latest = os.path.join(run_dir, "checkpoint-latest")
+    meta = read_meta(latest)
+    check((meta.get("resume_epoch"), meta.get("resume_iter")) == (1, 2),
+          f"checkpoint-latest meta {meta}")
+    first = recorder.steps
+    resumed_cfg = copy.deepcopy(config)
+    resumed_cfg["trainer"].update(save_dir=os.path.join(workdir, "resumed"),
+                                  save_period=10, save_per_iters=0)
+    recorder.start()
+    reset_launches()
+    t0 = time.perf_counter()
+    resumed = train_cli.main(resumed_cfg, "cuda", resume=latest)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    recorder.stop()
+    got = recorder.steps
+    print(f"resumed from checkpoint-latest (epoch 1, batch 2): {len(got)} steps + "
+          f"validation in {wall:.1f} s (model build included); launches {launches}")
+    for g, w in zip(got, first[2:]):
+        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        print(f"  update {g['step']}: batch {g['batch']:08x} (uninterrupted "
+              f"{w['batch']:08x}), lr {g['lrs']} (uninterrupted {w['lrs']}), loss "
+              f"{g['loss']:.6f} (uninterrupted {w['loss']:.6f}, rel diff {rel:.2e}, "
+              f"tol {RESUME_LOSS_TOL}), stem launches {g['stem_launches']}")
+        check(rel <= RESUME_LOSS_TOL, f"resumed loss {g} vs uninterrupted {w}")
+    check([g["step"] for g in got] == [3, 4] and resumed.state.step == STEPS,
+          f"resumed updates {[g['step'] for g in got]}")
+    check([g["batch"] for g in got] == [w["batch"] for w in first[2:]],
+          "the resumed run took other batches than the uninterrupted one")
+    check(got[0]["lrs"] == first[2]["lrs"], "the first resumed rate differs")
+    check([g["stem_launches"] for g in got] == [1, 1]
+          and launches == {"stem_conv_wgrad": 2, "flat_conv_wgrad": 0,
+                           "flat_conv_dgrad": 0},
+          f"resumed launches {launches}, per step {[g['stem_launches'] for g in got]}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"checkpoint_mb": size / 1e6, "save_s": save_s, "load_s": load_s,
+                      "resumed_losses": [g["loss"] for g in got],
+                      "uninterrupted_losses": [w["loss"] for w in first[2:]]}
+
+
+def inference_phase(best, workdir, seed, card):
+    """The inference CLI on ``best`` in both modes and both dtypes on two
+    seeded 1024x2048 PNGs; every written class map read back equal to the
+    library call's. Returns the launches of the CLI runs."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from segtpu_torch import inference as inference_cli
+    from segtpu_torch.checkpoint import load_config_from_checkpoint, load_model_weights
+    from segtpu_torch.data import dataset_meta
+    from segtpu_torch.inference_lib import (_tile_boxes, make_predictor,
+                                            multi_scale_predict, sliding_predict)
+    from segtpu_torch.models import get_model
+    from segtpu_torch.utils import png
+
+    image_dir = os.path.join(workdir, "images")
+    os.makedirs(image_dir)
+    rng = np.random.default_rng(seed)
+    names = ["frame0", "frame1"]
+    for name in names:
+        # 64-pixel blocks of colour plus noise: structure at several scales
+        blocks = rng.integers(0, 256, (FRAME[0] // 64, FRAME[1] // 64, 3))
+        pixels = np.repeat(np.repeat(blocks, 64, 0), 64, 1) + rng.normal(0, 20, FRAME + (3,))
+        png.write(os.path.join(image_dir, name + ".png"),
+                  np.clip(pixels, 0, 255).astype(np.uint8))
+    config = load_config_from_checkpoint(best)
+    mean, std, _, num_classes = dataset_meta(config)
+    model = get_model(config["arch"]["type"], device="cuda", num_classes=num_classes,
+                      **config["arch"]["args"])
+    load_model_weights(best, model)
+    frames = [(np.asarray(png.to_rgb(png.read(os.path.join(image_dir, n + ".png"))),
+                          np.float32) / 255.0 - np.float32(mean)) / np.float32(std)
+              for n in names]
+    boxes = _tile_boxes(FRAME[0], FRAME[1], 2.5, 1 / 3)[2]
+    t0 = time.perf_counter()
+    for scale in inference_cli.scales_for(config):
+        ndimage.zoom(frames[0], (scale, scale, 1.0), order=1, prefilter=False)
+    print(f"inference: the host's scipy zoom of one frame to the "
+          f"{len(inference_cli.scales_for(config))} multiscale scales takes "
+          f"{time.perf_counter() - t0:.3f} s")
+    total = {name: 0 for name in read_launches()}
+    maps = {}
+    for mode in ("sliding", "multiscale"):
+        for dtype in ("float32", "bfloat16"):
+            out = os.path.join(workdir, f"out-{mode}-{dtype}")
+            reset_launches()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            result = inference_cli.main([
+                "--model", best, "--images", image_dir, "--output", out,
+                "--extension", "png", "--mode", mode, "--dtype", dtype,
+                "--device", "cuda"])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = read_launches()
+            total = {k: total[k] + v for k, v in launches.items()}
+            predict = make_predictor(model, compute_dtype=getattr(torch, dtype),
+                                     device="cuda")
+            seen = []
+
+            def counted(x):
+                seen.append(len(x))
+                return predict(x)
+
+            counted.device = predict.device
+            for name, frame in zip(names, frames):
+                written = png.read(os.path.join(out, name + ".png")).pixels
+                if mode == "sliding":
+                    want = sliding_predict(counted, frame, num_classes, class_map=True)
+                else:
+                    want = multi_scale_predict(counted, frame,
+                                               inference_cli.scales_for(config),
+                                               num_classes, class_map=True)
+                check(written.shape == FRAME and np.array_equal(written, want),
+                      f"{mode} {dtype} {name}: the PNG differs from the library "
+                      f"call's class map on {np.mean(written != want):.3e} of pixels")
+                maps[mode, dtype, name] = written
+            secs = ", ".join(f"{t:.3f}" for t in result["seconds"])
+            shape = (f"{len(boxes)} tiles ({2 * len(boxes)} with flips) in "
+                     f"{len(seen) // len(names)} forwards of {seen[0]}"
+                     if mode == "sliding" else
+                     f"scales {inference_cli.scales_for(config)}, "
+                     f"{len(seen) // len(names)} forwards")
+            print(f"inference {mode} {dtype}: {secs} s per image (the first "
+                  f"includes the CLI's first forwards), {shape}; peak memory "
+                  f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held before); "
+                  f"launches {launches}; {len(names)} PNGs equal to the library "
+                  f"call's class maps [{card}]", flush=True)
+    # the device-resident sliding pipeline against a plain one: each tile
+    # and its mirror image forwarded alone, the canvas summed on the host in
+    # float64 (the original repo's loop)
+    predict = make_predictor(model, device="cuda")
+    canvas = sliding_predict(predict, frames[0], num_classes)
+    tile_h, tile_w, _ = _tile_boxes(FRAME[0], FRAME[1], 2.5, 1 / 3)
+    ref = np.zeros(canvas.shape, np.float64)
+    count = np.zeros(canvas.shape[:2] + (1,), np.float64)
+    for y0, y1, x0, x1 in boxes:
+        tile = np.zeros((tile_h, tile_w, 3), np.float32)
+        tile[:y1 - y0, :x1 - x0] = frames[0][y0:y1, x0:x1]
+        x = torch.from_numpy(tile).to("cuda").permute(2, 0, 1)[None]
+        logits = 0.5 * (predict(x)[0] + predict(x.flip(-1))[0].flip(-1))
+        ref[y0:y1, x0:x1] += logits.permute(1, 2, 0).double().cpu().numpy()[
+            :y1 - y0, :x1 - x0]
+        count[y0:y1, x0:x1] += 1
+    ref /= count
+    scale = np.abs(ref).max()
+    err = np.abs(canvas - ref).max() / scale
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > INFER_TOL * scale
+    same = np.mean((canvas.argmax(-1) == ref.argmax(-1))[clear])
+    print(f"inference sliding fp32, {FRAME[0]}x{FRAME[1]}: canvas vs the plain "
+          f"tile-by-tile loop (float64 sums): max abs err {err:.3e} of the largest "
+          f"logit (tol {INFER_TOL}); class maps agree on {same:.6f} of the pixels "
+          f"whose top-two margin exceeds the tol ({1 - clear.mean():.3e} of pixels "
+          f"left out); the canvas's class map holds "
+          f"{len(np.unique(canvas.argmax(-1)))} classes [{card}]", flush=True)
+    check(err <= INFER_TOL and same == 1.0,
+          f"the sliding canvas is off the plain loop's: {err}, {same}")
+    bf16 = sliding_predict(make_predictor(model, compute_dtype=torch.bfloat16,
+                                          device="cuda"), frames[0], num_classes)
+    print(f"inference sliding bf16, {FRAME[0]}x{FRAME[1]}: canvas vs the plain fp32 "
+          f"loop: max abs err {np.abs(bf16 - ref).max() / scale:.3e} of the largest "
+          f"logit (not checked)")
+    for mode in ("sliding", "multiscale"):
+        agree = np.mean([np.mean(maps[mode, "bfloat16", n] == maps[mode, "float32", n])
+                         for n in names])
+        classes = [len(np.unique(maps[mode, "float32", n])) for n in names]
+        print(f"inference {mode}: bf16 and fp32 class maps agree on {agree:.6f} of "
+              f"pixels; the fp32 maps hold {classes} classes")
+    check(all(v == 0 for v in total.values()), f"inference launched {total}")
+    return total
+
+
+def serving_phase(best, workdir, seed, card):
+    """Export ``best`` at batch 1 and CROP x CROP on cuda, reload it and run
+    it on a seeded uint8 batch beside the eager serve module. Returns the
+    launches of the export and the reloaded program's run."""
+    import torch
+
+    from segtpu_torch.checkpoint import load_config_from_checkpoint, load_model_weights
+    from segtpu_torch.data import dataset_meta
+    from segtpu_torch.models import get_model
+    from segtpu_torch.serving import ServeModule, export_checkpoint, load_serving_artifact
+
+    out = os.path.join(workdir, "serving")
+    reset_launches()
+    t0 = time.perf_counter()
+    export_checkpoint(best, out, batch=1, hw=(CROP, CROP), device="cuda")
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(out, "model.pt2"))
+    t0 = time.perf_counter()
+    call, meta = load_serving_artifact(out)
+    reload_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (1, CROP, CROP, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    preds, conf = call(images)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    config = load_config_from_checkpoint(best)
+    mean, std, _, num_classes = dataset_meta(config)
+    model = get_model(config["arch"]["type"], device="cuda", num_classes=num_classes,
+                      **config["arch"]["args"])
+    serve = ServeModule(load_model_weights(best, model), mean, std).to("cuda").eval()
+    with torch.no_grad():
+        want_preds, want_conf = serve(images)
+        top2 = torch.softmax(serve.logits(images), 1).topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SERVE_TOL
+    conf_err = (conf - want_conf).abs().max().item()
+    mismatched = ((preds != want_preds) & clear).sum().item()
+    program_ms = cuda_ms(lambda: call(images), iters=10)
+    with torch.no_grad():
+        eager_ms = cuda_ms(lambda: serve(images), iters=10)
+    print(f"serving export at batch 1, {CROP}x{CROP}, bf16, cuda: export {export_s:.1f} s, "
+          f"model.pt2 {size / 1e6:.1f} MB, reload {reload_s:.1f} s; launches {launches}; "
+          f"predictions {tuple(preds.shape)} {preds.dtype}, confidence {conf.dtype}; "
+          f"max |confidence - eager| {conf_err:.3e} (tol {SERVE_TOL}); predictions "
+          f"differ from eager on {mismatched} pixels whose top-two margin exceeds "
+          f"the tol ({1 - clear.float().mean().item():.2e} of pixels are within it); "
+          f"program {program_ms:.2f} ms, eager module {eager_ms:.2f} ms a call [{card}]",
+          flush=True)
+    check(preds.dtype == torch.int32 and conf.dtype == torch.float32
+          and tuple(preds.shape) == tuple(conf.shape) == (1, CROP, CROP),
+          f"serving outputs {preds.shape} {preds.dtype}, {conf.shape} {conf.dtype}")
+    check(meta["platforms"] == ["cuda"] and meta["num_classes"] == CLASSES,
+          f"serving.json {meta}")
+    check(conf_err <= SERVE_TOL and mismatched == 0,
+          f"the exported program disagrees with the eager module ({conf_err}, "
+          f"{mismatched})")
+    check(all(v == 0 for v in launches.values()), f"serving launched {launches}")
+    return launches
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Drive segtpu_torch on one GPU")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the inference images and the serving batch")
+    args = parser.parse_args(argv)
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(args, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run(args, workdir):
+    import torch
 
     from segtpu_torch.ops import build
     from segtpu_torch.ops import conv_wgrad as cw
@@ -620,11 +1038,25 @@ def main():
     phase("main path: PSPNet-R50")
     from segtpu_torch.models import get_model
 
+    recorder = StepRecorder()
+    psp_config = smoke_config({"type": "PSPNet", "args": {"backbone": "resnet50",
+                                                         "pallas_stem_wgrad": True}},
+                              os.path.join(workdir, "saved"), save_period=1,
+                              save_per_iters=2)
+    resume = {}
+
+    def checkpoints(trainer):
+        phase("checkpoint and resume")
+        resume["launches"], resume["numbers"] = checkpoint_and_resume(
+            trainer, psp_config, recorder, workdir, card)
+        resume["best"] = os.path.join(trainer.checkpoint_dir, "best_model")
+
     trainer, psp_launches, (images, labels), (val_images, val_labels) = train_main_path(
-        "PSPNet-R50", {"type": "PSPNet",
-                       "args": {"backbone": "resnet50", "pallas_stem_wgrad": True}},
-        {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card)
+        "PSPNet-R50", psp_config,
+        {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card,
+        recorder, after_train=checkpoints)
     print(f"stem_conv_wgrad dy copies {cw.stem_conv_wgrad.copies}")
+    print("checkpoint and resume: " + json.dumps(resume["numbers"]))
 
     phase("in-step check: PSPNet-R50")
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
@@ -701,10 +1133,22 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("inference")
+    infer_launches = inference_phase(resume["best"], workdir, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("serving export")
+    serve_launches = serving_phase(resume["best"], workdir, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("main path: UperNet-R101")
     trainer, uper_launches, (images, labels), _ = train_main_path(
-        "UperNet-R101", {"type": "UperNet", "args": {"backbone": "resnet101"}},
-        {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card)
+        "UperNet-R101", smoke_config({"type": "UperNet", "args": {"backbone": "resnet101"}},
+                                     os.path.join(workdir, "saved")),
+        {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card,
+        recorder)
 
     phase("in-step check: UperNet-R101")
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
@@ -724,7 +1168,10 @@ def main():
 
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
-                 "are those of the flat_conv phase, 0 on both models' main paths")
+                 "are those of the flat_conv phase, 0 on every main path")
+    paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
+             "inference": infer_launches, "serving export": serve_launches,
+             "UperNet-R101": uper_launches}
     stem_main = stem_times[0]
     kernels = [{
         "name": "stem_conv_wgrad", "route": "cuda",
@@ -734,7 +1181,8 @@ def main():
         "max_abs_err": main_err,
         **{key: stem_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
-        "timings": stem_times}]
+        "timings": stem_times,
+        "main_path_launches": {k: v["stem_conv_wgrad"] for k, v in paths.items()}}]
     for name, line, idx in (("flat_conv_wgrad", "segtpu/ops/flatconv.py:168", 0),
                             ("flat_conv_dgrad", "segtpu/ops/flatconv.py:205", 1)):
         first = flat_times[name][0]
@@ -747,8 +1195,7 @@ def main():
                                            "library_ms")},
             "timings": flat_times[name],
             "in_step_max_abs_err": {k: v[idx] for k, v in in_step.items()},
-            "main_path_launches": {"PSPNet-R50": psp_launches[name],
-                                   "UperNet-R101": uper_launches[name]}})
+            "main_path_launches": {k: v[name] for k, v in paths.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

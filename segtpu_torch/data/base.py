@@ -134,11 +134,23 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
         self._epoch = 0
+        self._skip_next = 0
 
     def __len__(self):
         if self.dataset.val:
             return -(-len(self.dataset) // self.batch_size)
         return len(self.dataset) // self.batch_size
+
+    def set_epoch(self, n: int):
+        """The next ``__iter__`` gives training epoch ``n + 1``'s order (a
+        fresh loader starts at 0): the resume hook."""
+        self._epoch = n
+
+    def skip_batches(self, k: int):
+        """The next ``__iter__`` skips its first ``k`` batches without
+        fetching them and yields the rest of that epoch's order: a
+        mid-epoch resume continues where the interrupted run stopped."""
+        self._skip_next = int(k)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         order = np.arange(len(self.dataset))
@@ -146,12 +158,13 @@ class DataLoader:
             np.random.RandomState(self._epoch).shuffle(order)
         self._epoch += 1
         epoch, bs = self._epoch, self.batch_size
+        skip, self._skip_next = self._skip_next, 0
 
         def fetch(idx):
             return self.dataset.get(int(idx), rng=_sample_rng(0, epoch, int(idx)))
 
         with ThreadPoolExecutor(self.num_workers) as pool:
-            for b in range(len(self)):
+            for b in range(skip, len(self)):
                 samples = list(pool.map(fetch, order[b * bs:(b + 1) * bs]))
                 images = np.stack([s[0] for s in samples])
                 labels = np.stack([s[1] for s in samples])

@@ -1,9 +1,11 @@
 """Training CLI with segtpu's config surface:
 
     python -m segtpu_torch.train --config config.json [--device cpu]
+    python -m segtpu_torch.train --resume saved/<name>/<ts>/checkpoint-epoch5
 
 The config schema is segtpu's (``train.py``): name, arch, train_loader,
-val_loader, optimizer, loss, ignore_index, lr_scheduler, trainer.
+val_loader, optimizer, loss, ignore_index, lr_scheduler, trainer. With
+``--resume`` and no ``--config`` the config is the checkpoint's own.
 ``--device`` defaults to ``cuda``; the CPU is used only when asked for.
 """
 
@@ -22,7 +24,7 @@ def get_instance(registry, name, config, *args, **extra):
     return registry[cfg["type"]](*args, **{**cfg["args"], **extra})
 
 
-def main(config, device="cuda"):
+def main(config, device="cuda", resume=None):
     from segtpu_torch import resolve_device
     from segtpu_torch.data import DATASETS
     from segtpu_torch.models import get_model
@@ -42,7 +44,7 @@ def main(config, device="cuda"):
                       **arch.get("args", {}))
     logger.info(f"model: {type(model).__name__} on {device}")
     trainer = Trainer(model, config["loss"], config, train_loader, val_loader,
-                      device=device)
+                      device=device, resume=resume)
     trainer.train()
     logging.getLogger("segtpu_torch.train").info("kernel launches: " + ", ".join(
         f"{fn.__name__}={fn.launches}"
@@ -52,10 +54,20 @@ def main(config, device="cuda"):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description="segtpu_torch training")
-    parser.add_argument("-c", "--config", default="config.json", type=str,
-                        help="Path to the config file (default: config.json)")
+    parser.add_argument("-c", "--config", default=None, type=str,
+                        help="Path to the config file (default: the resumed "
+                             "checkpoint's, else config.json)")
+    parser.add_argument("-r", "--resume", default=None, type=str,
+                        help="Path to the checkpoint directory to resume from")
     parser.add_argument("-d", "--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (default) or cpu")
     args = parser.parse_args()
-    with open(args.config) as f:
-        main(json.load(f), args.device)
+    config = None
+    if args.resume and args.config is None:
+        from segtpu_torch.checkpoint import load_config_from_checkpoint
+
+        config = load_config_from_checkpoint(args.resume)
+    if config is None:
+        with open(args.config or "config.json") as f:
+            config = json.load(f)
+    main(config, args.device, args.resume)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, and the
+port's checkpoints and sliding inference between the card and the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports no JAX (nor tests/torch_parity.py, which does), so that it runs on a
@@ -263,3 +264,71 @@ def test_flat_conv_backward_launches_each_kernel_once(cuda_device):
         launches[0] + 1, launches[1] + 1)
     assert x.grad.shape == x.shape and x.grad.dtype == torch.float32
     assert w.grad.shape == w.shape and w.grad.dtype == torch.float32
+
+
+def _tiny_state(device, seed):
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.models import get_model
+
+    model = get_model("PSPNet", device=device, seed=seed, num_classes=3,
+                      backbone="resnet18", pallas_stem_wgrad=True)
+    opt, schedules = make_optimizer(model, num_epochs=1, iters_per_epoch=2)
+    return TrainState(model, opt, schedules)
+
+
+@pytest.mark.cuda
+def test_checkpoint_moves_between_the_card_and_the_cpu(cuda_device, tmp_path):
+    """A checkpoint of a channels_last model trained one step on the card
+    loads into a CPU model with the same bits, and that model's checkpoint
+    loads back into a card model with the same bits again."""
+    from segtpu_torch import losses
+    from segtpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from segtpu_torch.core.steps import make_train_step
+
+    state = _tiny_state("cuda", 0)
+    kernel = next(p for p in state.model.parameters() if p.dim() == 4)
+    assert not kernel.is_contiguous()  # channels_last on the card
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 33, 33, 3), np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 3, (2, 33, 33), np.int64))
+    step = make_train_step(losses.cross_entropy, compute_dtype=torch.float32,
+                           norm_stats=([0.5] * 3, [0.25] * 3))
+    step(state, images.to(cuda_device), labels.to(cuda_device))
+
+    def snapshot(s):
+        opt = s.optimizer
+        return ([v.cpu() for v in s.model.state_dict().values()]
+                + [opt.state[p]["momentum_buffer"].cpu()
+                   for g in opt.param_groups for p in g["params"]], s.step)
+
+    want = snapshot(state)
+    save_checkpoint(str(tmp_path), "card", state, 1, 0.5, {}, "PSPNet")
+    on_cpu = _tiny_state("cpu", 1)
+    load_checkpoint(str(tmp_path / "card"), on_cpu)
+    save_checkpoint(str(tmp_path), "cpu", on_cpu, 1, 0.5, {}, "PSPNet")
+    back = _tiny_state("cuda", 2)
+    load_checkpoint(str(tmp_path / "cpu"), back)
+    for got in (snapshot(on_cpu), snapshot(back)):
+        assert got[1] == want[1]
+        assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+
+
+@pytest.mark.cuda
+def test_sliding_predict_on_the_card_matches_the_cpu(cuda_device):
+    """fp32 (TF32 off): the card's canvas within 1e-4 of the canvas maximum of
+    the CPU's on the same weights (the CPU tests' tolerance against segtpu)."""
+    from segtpu_torch.inference_lib import make_predictor, sliding_predict
+
+    image = np.random.default_rng(1).normal(size=(40, 56, 3)).astype(np.float32)
+    canvases = []
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            predict = make_predictor(_tiny_state(device, 3).model, device=device)
+            canvases.append(sliding_predict(predict, image, 3, max_tile_batch=16))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu, card = canvases
+    assert card.shape == cpu.shape == (40, 56, 3)
+    assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()

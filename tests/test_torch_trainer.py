@@ -91,10 +91,10 @@ def test_get_model_and_trainer_without_device_raise_without_cuda():
 
 @pytest.mark.parametrize("monitor", ["min val_loss", "max Pixel_Accuracy",
                                      "max no_such_metric"])
-def test_trainer_monitor_and_early_stop(monitor):
+def test_trainer_monitor_and_early_stop(monitor, tmp_path):
     """With early_stop 0 the run stops at the first epoch that does not
     improve on the best so far; a metric never computed stops it at once."""
-    cfg = _config(epochs=4, monitor=monitor, early_stop=0)
+    cfg = _config(epochs=4, monitor=monitor, early_stop=0, save_dir=str(tmp_path))
     loader = Synthetic(**cfg["train_loader"]["args"])
     val = Synthetic(**cfg["val_loader"]["args"])
     model = get_model("PSPNet", device="cpu", num_classes=3, backbone="resnet18")
