@@ -37,10 +37,14 @@ Phases, each announced on its own line:
    the end;
    checkpoint and resume: checkpoint-epoch1 loads back into a fresh state
    bit for bit (model, optimizer, update count), with its size and its save
-   and load times; a run resumed from checkpoint-latest takes the epoch's
-   last two steps on the uninterrupted run's batches, at its first rate,
-   with its losses within RESUME_LOSS_TOL and one stem launch a step (the
-   counts set to 0 just before it and read just after);
+   and load times; a run resumed from checkpoint-latest starts its first
+   update from the uninterrupted run's state bit for bit (model, momentum,
+   update count, CPU and CUDA generators) and takes the epoch's last two
+   steps on the uninterrupted run's batches, at its first rate, with its
+   first loss equal to the uninterrupted run's, its second within
+   RESUME_LOSS_TOL, and one stem launch a step (the counts set to 0 just
+   before it and read just after); two controls, resumes that drop the
+   generators' or the momentum buffers' restore, must fail those checks;
    then the main path times the train step on one device-resident batch,
    and traces a few more steps with torch.profiler for the device time by
    kernel category and the device's idle share, under the same flags;
@@ -54,11 +58,15 @@ Phases, each announced on its own line:
    other: the same bf16 step run twice gives another upstream gradient, and
    the script prints how far the stem gradient moves;
 8. inference: the inference CLI (``segtpu_torch.inference.main``) on
-   best_model, in sliding and multiscale mode, fp32 and bf16, on two
-   1024x2048 RGB PNGs made from ``--seed``; each written class map reads
-   back equal to the library call's; seconds per image, tiles and forwards,
-   peak memory, and the share of pixels on which bf16 and fp32 agree; the
-   fp32 sliding canvas against the plain tile-by-tile loop, within INFER_TOL;
+   best_model and on a freshly built checkpoint whose class maps vary (its
+   BN statistics those of a batch of 8 crops of seeded frames like the
+   inference images), in sliding and multiscale mode,
+   fp32 and bf16, on two 1024x2048 RGB PNGs made from ``--seed``; each
+   written class map reads back equal to the library call's; seconds per
+   image, tiles and forwards, peak memory, and the share of pixels on which
+   bf16 and fp32 agree; each checkpoint's fp32 sliding canvas against the
+   plain tile-by-tile loop and its fp32 multiscale canvas (with flips)
+   against the plain scale-by-scale loop, within INFER_TOL;
    serving export: best_model exported by ``torch.export`` at batch 1 and
    769x769 for cuda, reloaded, and run on a seeded uint8 batch beside the
    eager serve module (predictions equal where the top-two margin exceeds
@@ -135,10 +143,11 @@ DGRAD_REL_TOL = 2.0 ** -7
 GRAD_REL_TOL = 2e-2
 STEPS = 4
 BATCH, CROP, CLASSES = 8, 769, 19
-# the losses of the resumed steps against the uninterrupted run's, relative:
-# the first is taken from the same state, batch and dropout masks; the second
-# after one backward whose atomic adds sum in another order
-RESUME_LOSS_TOL = 1e-2
+# the resumed run's losses against the uninterrupted run's: update 3 starts
+# from the same state, batch and dropout masks and must be equal; update 4
+# comes after one backward whose atomic adds sum in another order, and must
+# be within this, relative (its readings were 0.5e-3 to 1.4e-3 apart)
+RESUME_LOSS_TOL = 5e-3
 FRAME = (1024, 2048)  # the inference phase's images, a CityScapes frame
 # the sliding canvas against the plain tile-by-tile loop, relative to the
 # largest logit: fp32 (TF32 off), batch-16 against batch-1 forwards (the CPU
@@ -460,12 +469,14 @@ class StepRecorder:
     ``start()`` and ``stop()`` each step records its update count, a
     fingerprint of its batch, its learning rates, its loss and the stem
     kernel's launches in it (the float(loss) read syncs; timed steps run
-    outside, where the wrapper only passes through)."""
+    outside, where the wrapper only passes through). With ``snap_before``
+    set to an update count, the step that starts from it first copies the
+    state it starts from into ``snap`` (see ``snapshot``)."""
 
     def __init__(self):
         import segtpu_torch.trainer as trainer_mod
 
-        self.steps, self.on = [], False
+        self.steps, self.on, self.snap_before, self.snap = [], False, None, None
         make = trainer_mod.make_train_step
 
         def make_recorded(*args, **kwargs):
@@ -476,6 +487,8 @@ class StepRecorder:
                     return step(state, images, labels)
                 from segtpu_torch.ops import conv_wgrad as cw
 
+                if state.step == self.snap_before and self.snap is None:
+                    self.snap = snapshot(state)
                 before = cw.stem_conv_wgrad.launches
                 loss, stats = step(state, images, labels)
                 sample = (labels[:, ::7, ::7].cpu().numpy().tobytes()
@@ -492,7 +505,7 @@ class StepRecorder:
         trainer_mod.make_train_step = make_recorded
 
     def start(self):
-        self.steps, self.on = [], True
+        self.steps, self.snap, self.on = [], None, True
 
     def stop(self):
         self.on = False
@@ -501,6 +514,44 @@ class StepRecorder:
 def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(root, f))
                for root, _, files in os.walk(path) for f in files)
+
+
+def snapshot(state):
+    """Copies, on the card, of what a train step starts from: the model's
+    tensors, the momentum buffers, the update count and the CPU and CUDA
+    generators (dropout draws from them)."""
+    import torch
+
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return {"model": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "momentum": [None if buf is None else buf.clone() for buf in (
+                state.optimizer.state.get(p, {}).get("momentum_buffer")
+                for p in params)],
+            "step": state.step,
+            "rng": (torch.get_rng_state(), torch.cuda.get_rng_state())}
+
+
+def same_snapshot(a, b):
+    """Which parts of two snapshots differ; empty when all are bit-identical."""
+    import torch
+
+    def same_tensors(x, y):
+        return len(x) == len(y) and all(
+            (u is None and v is None)
+            or (u is not None and v is not None and torch.equal(u, v))
+            for u, v in zip(x, y))
+
+    differ = []
+    if a["step"] != b["step"]:
+        differ.append("update count")
+    if a["model"].keys() != b["model"].keys() or not same_tensors(
+            list(a["model"].values()), [b["model"][k] for k in a["model"]]):
+        differ.append("model")
+    if not same_tensors(a["momentum"], b["momentum"]):
+        differ.append("momentum")
+    if not all(torch.equal(u, v) for u, v in zip(a["rng"], b["rng"])):
+        differ.append("generators")
+    return differ
 
 
 def same_state(a, b):
@@ -525,10 +576,12 @@ def same_state(a, b):
 
 def checkpoint_and_resume(trainer, config, recorder, workdir, card):
     """The main path's checkpoints: checkpoint-epoch1 loads back bit for bit
-    into a fresh state; a resume from the mid-epoch checkpoint-latest runs
-    the epoch's remaining steps on the same batches, at the same first rate,
-    with losses within RESUME_LOSS_TOL, one stem launch a step. Returns the
-    resumed run's launches and the checkpoint's numbers."""
+    into a fresh state; a resume from the mid-epoch checkpoint-latest starts
+    from the uninterrupted run's state and runs the epoch's remaining steps
+    on the same batches, at the same first rate, its first loss equal and
+    its second within RESUME_LOSS_TOL, one stem launch a step; resumes that
+    drop a restore fail those checks. Returns the resumed run's launches and
+    the checkpoint's numbers."""
     import copy
 
     import torch
@@ -576,29 +629,61 @@ def checkpoint_and_resume(trainer, config, recorder, workdir, card):
     meta = read_meta(latest)
     check((meta.get("resume_epoch"), meta.get("resume_iter")) == (1, 2),
           f"checkpoint-latest meta {meta}")
-    first = recorder.steps
-    resumed_cfg = copy.deepcopy(config)
-    resumed_cfg["trainer"].update(save_dir=os.path.join(workdir, "resumed"),
-                                  save_period=10, save_per_iters=0)
-    recorder.start()
-    reset_launches()
-    t0 = time.perf_counter()
-    resumed = train_cli.main(resumed_cfg, "cuda", resume=latest)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    recorder.stop()
-    got = recorder.steps
+    first, uninterrupted = recorder.steps, recorder.snap
+    check(uninterrupted is not None and uninterrupted["step"] == 2,
+          "the uninterrupted run kept no copy of the state its update 3 starts from")
+    import segtpu_torch.trainer as trainer_mod
+
+    real_load = trainer_mod.load_checkpoint
+
+    def resume_run(label, load):
+        """A run resumed from checkpoint-latest through the train CLI, with
+        the trainer's ``load_checkpoint`` replaced by ``load``: its recorded
+        steps, the state its first update starts from, its launches (the
+        counts set to 0 just before it and read just after), its update
+        count and its wall time."""
+        cfg = copy.deepcopy(config)
+        cfg["trainer"].update(save_dir=os.path.join(workdir, label), save_period=10,
+                              save_per_iters=0)
+        trainer_mod.load_checkpoint = load
+        try:
+            recorder.start()
+            reset_launches()
+            t0 = time.perf_counter()
+            resumed = train_cli.main(cfg, "cuda", resume=latest)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            recorder.stop()
+        finally:
+            trainer_mod.load_checkpoint = real_load
+        return recorder.steps, recorder.snap, launches, resumed.state.step, wall
+
+    def loss_diffs(got):
+        return [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got, first[2:])]
+
+    def within_limits(got):
+        diffs = loss_diffs(got)
+        return len(diffs) == 2 and diffs[0] == 0.0 and diffs[1] <= RESUME_LOSS_TOL
+
+    got, snap, launches, step, wall = resume_run("resumed", real_load)
     print(f"resumed from checkpoint-latest (epoch 1, batch 2): {len(got)} steps + "
           f"validation in {wall:.1f} s (model build included); launches {launches}")
-    for g, w in zip(got, first[2:]):
-        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+    differ = same_snapshot(snap, uninterrupted) if snap else ["all: no copy kept"]
+    print(f"  the state update 3 starts from (model, BN statistics, momentum, update "
+          f"count, CPU and CUDA generators) is bit-identical to the uninterrupted "
+          f"run's: {not differ}" + (f" (differs in {differ})" if differ else ""))
+    del snap
+    for g, w, rel in zip(got, first[2:], loss_diffs(got)):
         print(f"  update {g['step']}: batch {g['batch']:08x} (uninterrupted "
               f"{w['batch']:08x}), lr {g['lrs']} (uninterrupted {w['lrs']}), loss "
-              f"{g['loss']:.6f} (uninterrupted {w['loss']:.6f}, rel diff {rel:.2e}, "
-              f"tol {RESUME_LOSS_TOL}), stem launches {g['stem_launches']}")
-        check(rel <= RESUME_LOSS_TOL, f"resumed loss {g} vs uninterrupted {w}")
-    check([g["step"] for g in got] == [3, 4] and resumed.state.step == STEPS,
+              f"{g['loss']:.6f} (uninterrupted {w['loss']:.6f}, rel diff {rel:.2e}), "
+              f"stem launches {g['stem_launches']}")
+    check(not differ, f"the resumed run starts update 3 from another state: {differ}")
+    check(within_limits(got),
+          f"resumed losses {loss_diffs(got)} apart: update 3 must equal the "
+          f"uninterrupted run's, update 4 be within {RESUME_LOSS_TOL}")
+    check([g["step"] for g in got] == [3, 4] and step == STEPS,
           f"resumed updates {[g['step'] for g in got]}")
     check([g["batch"] for g in got] == [w["batch"] for w in first[2:]],
           "the resumed run took other batches than the uninterrupted one")
@@ -607,20 +692,103 @@ def checkpoint_and_resume(trainer, config, recorder, workdir, card):
           and launches == {"stem_conv_wgrad": 2, "flat_conv_wgrad": 0,
                            "flat_conv_dgrad": 0},
           f"resumed launches {launches}, per step {[g['stem_launches'] for g in got]}")
-    del resumed
+    resumed_losses = [g["loss"] for g in got]
+
+    # Controls: resumes that drop one restore must fail the checks above.
+    def without_generators(path, state):
+        kept = (torch.get_rng_state(), torch.cuda.get_rng_state())
+        meta = real_load(path, state)
+        torch.set_rng_state(kept[0])
+        torch.cuda.set_rng_state(kept[1])
+        return meta
+
+    def without_momentum(path, state):
+        meta = real_load(path, state)
+        state.optimizer.state.clear()
+        return meta
+
+    controls = {}
+    for label, load in (("without the generators' restore", without_generators),
+                        ("without the momentum buffers' restore", without_momentum)):
+        got, snap, _, _, _ = resume_run("control", load)
+        differ = same_snapshot(snap, uninterrupted) if snap else ["all: no copy kept"]
+        diffs = loss_diffs(got)
+        caught = not within_limits(got)
+        print(f"control, a resume {label}: loss rel diffs {diffs} (update 3 must be "
+              f"0, update 4 within {RESUME_LOSS_TOL}): the loss limits "
+              f"{'catch' if caught else 'do not catch'} it; the state update 3 "
+              f"starts from differs in {differ}")
+        check(bool(differ), f"the state check misses a resume {label}")
+        controls[label] = {"loss_rel_diffs": diffs, "losses_catch": caught,
+                           "state_differs_in": differ}
+        del snap
+        shutil.rmtree(os.path.join(workdir, "control"), ignore_errors=True)
+    check(controls["without the generators' restore"]["losses_catch"],
+          "the loss limits miss a resume that drops the generators")
+    recorder.snap_before = None
+    del uninterrupted
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"checkpoint_mb": size / 1e6, "save_s": save_s, "load_s": load_s,
-                      "resumed_losses": [g["loss"] for g in got],
-                      "uninterrupted_losses": [w["loss"] for w in first[2:]]}
+                      "resumed_losses": resumed_losses,
+                      "uninterrupted_losses": [w["loss"] for w in first[2:]],
+                      "controls": controls}
+
+
+def block_frame(rng):
+    """A FRAME-sized uint8 RGB image: 64-pixel blocks of colour plus noise,
+    structure at several scales."""
+    import numpy as np
+
+    blocks = rng.integers(0, 256, (FRAME[0] // 64, FRAME[1] // 64, 3))
+    pixels = np.repeat(np.repeat(blocks, 64, 0), 64, 1) + rng.normal(0, 20, FRAME + (3,))
+    return np.clip(pixels, 0, 255).astype(np.uint8)
+
+
+def varied_checkpoint(best, workdir, seed, batch):
+    """A checkpoint of a PSPNet-R50 freshly built from ``seed`` whose BN
+    statistics are those of ``batch`` (normalized NHWC frames like the
+    inference images; one train-mode forward with momentum 1): its class
+    maps vary over the frame, where best_model's, after a few steps, hold
+    one class. Returns its directory."""
+    import torch
+
+    from segtpu_torch.checkpoint import load_config_from_checkpoint, save_checkpoint
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.models import get_model
+
+    config = load_config_from_checkpoint(best)
+    model = get_model("PSPNet", device="cuda", seed=seed + 1, num_classes=CLASSES,
+                      **config["arch"]["args"])
+    norms = {m: m.momentum for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)}
+    for m in norms:
+        m.momentum = 1.0
+    x = torch.from_numpy(batch).to("cuda").permute(0, 3, 1, 2)
+    model.train()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model(x.contiguous(memory_format=torch.channels_last))
+    for m, momentum in norms.items():
+        m.momentum = momentum
+    opt, schedules = make_optimizer(model, differential_lr=True, num_epochs=1,
+                                    iters_per_epoch=STEPS,
+                                    **config["optimizer"]["args"])
+    path = save_checkpoint(workdir, "varied", TrainState(model, opt, schedules), 0,
+                           float("nan"), config, "PSPNet")
+    del model, opt, x
+    return path
 
 
 def inference_phase(best, workdir, seed, card):
-    """The inference CLI on ``best`` in both modes and both dtypes on two
+    """The inference CLI on ``best`` and on a checkpoint whose class maps
+    vary (``varied_checkpoint``), in both modes and both dtypes, on two
     seeded 1024x2048 PNGs; every written class map read back equal to the
-    library call's. Returns the launches of the CLI runs."""
+    library call's; each checkpoint's fp32 sliding and multiscale (with
+    flips) canvases against plain loops. Returns the launches of the CLI
+    runs."""
     import numpy as np
     import torch
+    from PIL import Image
     from scipy import ndimage
 
     from segtpu_torch import inference as inference_cli
@@ -629,26 +797,20 @@ def inference_phase(best, workdir, seed, card):
     from segtpu_torch.inference_lib import (_tile_boxes, make_predictor,
                                             multi_scale_predict, sliding_predict)
     from segtpu_torch.models import get_model
-    from segtpu_torch.utils import png
 
     image_dir = os.path.join(workdir, "images")
     os.makedirs(image_dir)
     rng = np.random.default_rng(seed)
     names = ["frame0", "frame1"]
     for name in names:
-        # 64-pixel blocks of colour plus noise: structure at several scales
-        blocks = rng.integers(0, 256, (FRAME[0] // 64, FRAME[1] // 64, 3))
-        pixels = np.repeat(np.repeat(blocks, 64, 0), 64, 1) + rng.normal(0, 20, FRAME + (3,))
-        png.write(os.path.join(image_dir, name + ".png"),
-                  np.clip(pixels, 0, 255).astype(np.uint8))
+        Image.fromarray(block_frame(rng)).save(os.path.join(image_dir, name + ".png"))
     config = load_config_from_checkpoint(best)
     mean, std, _, num_classes = dataset_meta(config)
-    model = get_model(config["arch"]["type"], device="cuda", num_classes=num_classes,
-                      **config["arch"]["args"])
-    load_model_weights(best, model)
-    frames = [(np.asarray(png.to_rgb(png.read(os.path.join(image_dir, n + ".png"))),
-                          np.float32) / 255.0 - np.float32(mean)) / np.float32(std)
-              for n in names]
+    frames = []
+    for n in names:
+        with Image.open(os.path.join(image_dir, n + ".png")) as image:
+            rgb = np.asarray(image.convert("RGB"), np.float32)
+        frames.append((rgb / 255.0 - np.float32(mean)) / np.float32(std))
     boxes = _tile_boxes(FRAME[0], FRAME[1], 2.5, 1 / 3)[2]
     t0 = time.perf_counter()
     for scale in inference_cli.scales_for(config):
@@ -656,96 +818,152 @@ def inference_phase(best, workdir, seed, card):
     print(f"inference: the host's scipy zoom of one frame to the "
           f"{len(inference_cli.scales_for(config))} multiscale scales takes "
           f"{time.perf_counter() - t0:.3f} s")
+    def against_plain(what, canvas, ref, loop):
+        """Hold an fp32 canvas to the plain loop's within INFER_TOL of the
+        largest logit, and its class map wherever the top-two margin
+        exceeds that."""
+        scale = np.abs(ref).max()
+        err = np.abs(canvas - ref).max() / scale
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        clear = top2[..., 1] - top2[..., 0] > INFER_TOL * scale
+        same = np.mean((canvas.argmax(-1) == ref.argmax(-1))[clear])
+        print(f"inference {what} fp32, {FRAME[0]}x{FRAME[1]}: canvas vs the plain "
+              f"{loop} loop (float64 sums): max abs err {err:.3e} of the largest "
+              f"logit (tol {INFER_TOL}); class maps agree on {same:.6f} of the pixels "
+              f"whose top-two margin exceeds the tol ({1 - clear.mean():.3e} of "
+              f"pixels left out); the canvas's class map holds "
+              f"{len(np.unique(canvas.argmax(-1)))} classes [{card}]", flush=True)
+        check(err <= INFER_TOL and same == 1.0,
+              f"{what}: the canvas is off the plain loop's: {err}, {same}")
+
     total = {name: 0 for name in read_launches()}
-    maps = {}
-    for mode in ("sliding", "multiscale"):
-        for dtype in ("float32", "bfloat16"):
-            out = os.path.join(workdir, f"out-{mode}-{dtype}")
-            reset_launches()
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            result = inference_cli.main([
-                "--model", best, "--images", image_dir, "--output", out,
-                "--extension", "png", "--mode", mode, "--dtype", dtype,
-                "--device", "cuda"])
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            launches = read_launches()
-            total = {k: total[k] + v for k, v in launches.items()}
-            predict = make_predictor(model, compute_dtype=getattr(torch, dtype),
-                                     device="cuda")
-            seen = []
+    rng = np.random.default_rng(seed + 1)
+    batch = np.stack([(block_frame(rng)[:CROP, :CROP] / np.float32(255.0)
+                       - np.float32(mean)) / np.float32(std) for _ in range(BATCH)])
+    checkpoints = {"best_model": best,
+                   "varied": varied_checkpoint(best, workdir, seed, batch)}
+    for label, ckpt in checkpoints.items():
+        model = get_model(config["arch"]["type"], device="cuda",
+                          num_classes=num_classes, **config["arch"]["args"])
+        load_model_weights(ckpt, model)
+        maps = {}
+        for mode in ("sliding", "multiscale"):
+            for dtype in ("float32", "bfloat16"):
+                out = os.path.join(workdir, f"out-{label}-{mode}-{dtype}")
+                reset_launches()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                result = inference_cli.main([
+                    "--model", ckpt, "--images", image_dir, "--output", out,
+                    "--extension", "png", "--mode", mode, "--dtype", dtype,
+                    "--device", "cuda"])
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                launches = read_launches()
+                total = {k: total[k] + v for k, v in launches.items()}
+                predict = make_predictor(model, compute_dtype=getattr(torch, dtype),
+                                         device="cuda")
+                seen = []
 
-            def counted(x):
-                seen.append(len(x))
-                return predict(x)
+                def counted(x):
+                    seen.append(len(x))
+                    return predict(x)
 
-            counted.device = predict.device
-            for name, frame in zip(names, frames):
-                written = png.read(os.path.join(out, name + ".png")).pixels
-                if mode == "sliding":
-                    want = sliding_predict(counted, frame, num_classes, class_map=True)
-                else:
-                    want = multi_scale_predict(counted, frame,
-                                               inference_cli.scales_for(config),
-                                               num_classes, class_map=True)
-                check(written.shape == FRAME and np.array_equal(written, want),
-                      f"{mode} {dtype} {name}: the PNG differs from the library "
-                      f"call's class map on {np.mean(written != want):.3e} of pixels")
-                maps[mode, dtype, name] = written
-            secs = ", ".join(f"{t:.3f}" for t in result["seconds"])
-            shape = (f"{len(boxes)} tiles ({2 * len(boxes)} with flips) in "
-                     f"{len(seen) // len(names)} forwards of {seen[0]}"
-                     if mode == "sliding" else
-                     f"scales {inference_cli.scales_for(config)}, "
-                     f"{len(seen) // len(names)} forwards")
-            print(f"inference {mode} {dtype}: {secs} s per image (the first "
-                  f"includes the CLI's first forwards), {shape}; peak memory "
-                  f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held before); "
-                  f"launches {launches}; {len(names)} PNGs equal to the library "
-                  f"call's class maps [{card}]", flush=True)
-    # the device-resident sliding pipeline against a plain one: each tile
-    # and its mirror image forwarded alone, the canvas summed on the host in
-    # float64 (the original repo's loop)
-    predict = make_predictor(model, device="cuda")
-    canvas = sliding_predict(predict, frames[0], num_classes)
-    tile_h, tile_w, _ = _tile_boxes(FRAME[0], FRAME[1], 2.5, 1 / 3)
-    ref = np.zeros(canvas.shape, np.float64)
-    count = np.zeros(canvas.shape[:2] + (1,), np.float64)
-    for y0, y1, x0, x1 in boxes:
-        tile = np.zeros((tile_h, tile_w, 3), np.float32)
-        tile[:y1 - y0, :x1 - x0] = frames[0][y0:y1, x0:x1]
-        x = torch.from_numpy(tile).to("cuda").permute(2, 0, 1)[None]
-        logits = 0.5 * (predict(x)[0] + predict(x.flip(-1))[0].flip(-1))
-        ref[y0:y1, x0:x1] += logits.permute(1, 2, 0).double().cpu().numpy()[
-            :y1 - y0, :x1 - x0]
-        count[y0:y1, x0:x1] += 1
-    ref /= count
-    scale = np.abs(ref).max()
-    err = np.abs(canvas - ref).max() / scale
-    top2 = np.sort(ref, axis=-1)[..., -2:]
-    clear = top2[..., 1] - top2[..., 0] > INFER_TOL * scale
-    same = np.mean((canvas.argmax(-1) == ref.argmax(-1))[clear])
-    print(f"inference sliding fp32, {FRAME[0]}x{FRAME[1]}: canvas vs the plain "
-          f"tile-by-tile loop (float64 sums): max abs err {err:.3e} of the largest "
-          f"logit (tol {INFER_TOL}); class maps agree on {same:.6f} of the pixels "
-          f"whose top-two margin exceeds the tol ({1 - clear.mean():.3e} of pixels "
-          f"left out); the canvas's class map holds "
-          f"{len(np.unique(canvas.argmax(-1)))} classes [{card}]", flush=True)
-    check(err <= INFER_TOL and same == 1.0,
-          f"the sliding canvas is off the plain loop's: {err}, {same}")
-    bf16 = sliding_predict(make_predictor(model, compute_dtype=torch.bfloat16,
-                                          device="cuda"), frames[0], num_classes)
-    print(f"inference sliding bf16, {FRAME[0]}x{FRAME[1]}: canvas vs the plain fp32 "
-          f"loop: max abs err {np.abs(bf16 - ref).max() / scale:.3e} of the largest "
-          f"logit (not checked)")
-    for mode in ("sliding", "multiscale"):
-        agree = np.mean([np.mean(maps[mode, "bfloat16", n] == maps[mode, "float32", n])
-                         for n in names])
-        classes = [len(np.unique(maps[mode, "float32", n])) for n in names]
-        print(f"inference {mode}: bf16 and fp32 class maps agree on {agree:.6f} of "
-              f"pixels; the fp32 maps hold {classes} classes")
+                counted.device = predict.device
+                for name, frame in zip(names, frames):
+                    with Image.open(os.path.join(out, name + ".png")) as image:
+                        check(image.mode == "P", f"{label} {mode} {dtype} {name}: "
+                              f"mode {image.mode}, want a palette PNG")
+                        written = np.asarray(image)
+                    if mode == "sliding":
+                        want = sliding_predict(counted, frame, num_classes,
+                                               class_map=True)
+                    else:
+                        want = multi_scale_predict(counted, frame,
+                                                   inference_cli.scales_for(config),
+                                                   num_classes, class_map=True)
+                    check(written.shape == FRAME and np.array_equal(written, want),
+                          f"{label} {mode} {dtype} {name}: the PNG differs from the "
+                          f"library call's class map on "
+                          f"{np.mean(written != want):.3e} of pixels")
+                    maps[mode, dtype, name] = written
+                secs = ", ".join(f"{t:.3f}" for t in result["seconds"])
+                shape = (f"{len(boxes)} tiles ({2 * len(boxes)} with flips) in "
+                         f"{len(seen) // len(names)} forwards of {seen[0]}"
+                         if mode == "sliding" else
+                         f"scales {inference_cli.scales_for(config)}, "
+                         f"{len(seen) // len(names)} forwards")
+                classes = [len(np.unique(maps[mode, dtype, n])) for n in names]
+                print(f"inference {label} {mode} {dtype}: {secs} s per image (the "
+                      f"first includes the CLI's first forwards), {shape}; peak "
+                      f"memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held "
+                      f"before); launches {launches}; {len(names)} PNGs equal to the "
+                      f"library call's class maps, holding {classes} classes "
+                      f"[{card}]", flush=True)
+        # the device-resident sliding pipeline against a plain one: each tile
+        # and its mirror image forwarded alone, the canvas summed on the host
+        # in float64 (the original repo's loop)
+        predict = make_predictor(model, device="cuda")
+        canvas = sliding_predict(predict, frames[0], num_classes)
+        tile_h, tile_w, _ = _tile_boxes(FRAME[0], FRAME[1], 2.5, 1 / 3)
+        ref = np.zeros(canvas.shape, np.float64)
+        count = np.zeros(canvas.shape[:2] + (1,), np.float64)
+        for y0, y1, x0, x1 in boxes:
+            tile = np.zeros((tile_h, tile_w, 3), np.float32)
+            tile[:y1 - y0, :x1 - x0] = frames[0][y0:y1, x0:x1]
+            x = torch.from_numpy(tile).to("cuda").permute(2, 0, 1)[None]
+            logits = 0.5 * (predict(x)[0] + predict(x.flip(-1))[0].flip(-1))
+            ref[y0:y1, x0:x1] += logits.permute(1, 2, 0).double().cpu().numpy()[
+                :y1 - y0, :x1 - x0]
+            count[y0:y1, x0:x1] += 1
+        ref /= count
+        against_plain(f"{label} sliding", canvas, ref, "tile-by-tile")
+        scale = np.abs(ref).max()
+        bf16 = sliding_predict(make_predictor(model, compute_dtype=torch.bfloat16,
+                                              device="cuda"), frames[0], num_classes)
+        print(f"inference {label} sliding bf16, {FRAME[0]}x{FRAME[1]}: canvas vs the "
+              f"plain fp32 loop: max abs err {np.abs(bf16 - ref).max() / scale:.3e} of "
+              f"the largest logit (not checked)")
+        for mode in ("sliding", "multiscale"):
+            agree = np.mean([np.mean(maps[mode, "bfloat16", n] == maps[mode, "float32", n])
+                             for n in names])
+            classes = [len(np.unique(maps[mode, "float32", n])) for n in names]
+            largest = [np.bincount(maps[mode, "float32", n].ravel()).max()
+                       / maps[mode, "float32", n].size for n in names]
+            print(f"inference {label} {mode}: bf16 and fp32 class maps agree on "
+                  f"{agree:.6f} of pixels; the fp32 maps hold {classes} classes, "
+                  f"the largest covering {', '.join(f'{x:.4f}' for x in largest)} "
+                  f"of pixels")
+            # the varied checkpoint's multiscale maps give the classes but one
+            # under 1% of pixels (its BN statistics are of scale-1 crops), so
+            # only more than one class is asked of them
+            if label == "varied":
+                check(max(largest) < 0.9 if mode == "sliding" else min(classes) > 1,
+                      f"the varied checkpoint's {mode} maps hold {classes} classes, "
+                      f"the largest covering {largest}: the class-map checks test little")
+        if label == "varied":  # best_model's maps hold one class
+            # multiscale, with flips, against a plain loop: each scale's frame
+            # and its mirror image forwarded and upsampled alone, averaged on
+            # the host in float64
+            scales = inference_cli.scales_for(config)
+            canvas = multi_scale_predict(predict, frames[0], scales, num_classes,
+                                         flip=True)
+            ref = np.zeros(canvas.shape, np.float64)
+            for s in scales:
+                zoomed = ndimage.zoom(frames[0], (s, s, 1.0), order=1, prefilter=False)
+                x = torch.from_numpy(zoomed).to("cuda").permute(2, 0, 1)[None]
+                for mirror in (False, True):
+                    logits = predict(x.flip(-1) if mirror else x)
+                    up = torch.nn.functional.interpolate(
+                        logits, size=FRAME, mode="bilinear", align_corners=True)
+                    up = up.flip(-1) if mirror else up
+                    ref += 0.5 * up[0].permute(1, 2, 0).double().cpu().numpy()
+            ref /= len(scales)
+            against_plain(f"{label} multiscale", canvas, ref, "scale-by-scale")
+        del model, predict, canvas, ref, bf16, maps
+        gc.collect()
+        torch.cuda.empty_cache()
     check(all(v == 0 for v in total.values()), f"inference launched {total}")
     return total
 
@@ -1044,6 +1262,7 @@ def run(args, workdir):
                               os.path.join(workdir, "saved"), save_period=1,
                               save_per_iters=2)
     resume = {}
+    recorder.snap_before = 2  # the state checkpoint-latest holds
 
     def checkpoints(trainer):
         phase("checkpoint and resume")

@@ -1,19 +1,15 @@
 """Small host-side helpers: directories, mask colorization, image reading.
 
-Counterpart of ``segtpu/utils/helpers.py``. segtpu colorizes masks with PIL;
-here the palette PNG is written by :mod:`segtpu_torch.utils.png`, with the
-indices and the palette that ``PIL.Image.fromarray(mask).convert("P")`` and
-``putpalette`` give.
+Counterpart of ``segtpu/utils/helpers.py``. PIL is imported where an image
+is read or made, not when the module is imported: the trainer imports this
+module and needs no image library.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple
 
 import numpy as np
-
-from segtpu_torch.utils import png
 
 
 def dir_exists(path: str):
@@ -21,21 +17,16 @@ def dir_exists(path: str):
         os.makedirs(path, exist_ok=True)
 
 
-class PaletteImage(NamedTuple):
-    """A mask's uint8 indices and its palette, padded to 768 values."""
-    indices: np.ndarray
-    palette: List[int]
+def colorize_mask(mask: np.ndarray, palette):
+    """P-mode PIL image of an integer mask, its palette padded to 768 values
+    (the original repo's ``utils/helpers.py:36-42``)."""
+    from PIL import Image
 
-    def save(self, path: str) -> None:
-        png.write(path, self.indices, self.palette)
-
-
-def colorize_mask(mask: np.ndarray, palette) -> PaletteImage:
-    """The palette image of an integer mask (the original repo's
-    ``utils/helpers.py:36-42``)."""
     palette = list(palette)
     palette = palette + [0] * max(256 * 3 - len(palette), 0)
-    return PaletteImage(np.asarray(mask).astype(np.uint8), palette)
+    new_mask = Image.fromarray(np.asarray(mask).astype(np.uint8)).convert("P")
+    new_mask.putpalette(palette)
+    return new_mask
 
 
 def denormalize(image: np.ndarray, mean, std) -> np.ndarray:
@@ -44,16 +35,8 @@ def denormalize(image: np.ndarray, mean, std) -> np.ndarray:
 
 
 def load_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 of an image file. PNGs are read by
-    :mod:`segtpu_torch.utils.png`; other formats need PIL, and raise where it
-    is not installed."""
-    if path.lower().endswith(".png"):
-        return png.to_rgb(png.read(path))
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: without PIL the port reads PNG only; decoding other "
-            f"formats without PIL waits for the data slice (ROADMAP)") from None
+    """(H, W, 3) uint8 of an image file."""
+    from PIL import Image
+
     with Image.open(path) as image:
         return np.asarray(image.convert("RGB"))

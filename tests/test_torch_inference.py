@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from segtpu import inference_lib as seg_inf
 from segtpu.data.synthetic import MEAN, STD
@@ -29,7 +30,6 @@ from segtpu_torch.data.synthetic import Synthetic
 from segtpu_torch.models import get_model
 from segtpu_torch.ops.reductions import fast_argmax
 from segtpu_torch.trainer import Trainer
-from segtpu_torch.utils import png
 from torch_parity import port_pspnet, port_upernet, segtpu_pspnet, segtpu_upernet
 
 torch.set_num_threads(1)
@@ -189,7 +189,7 @@ def trained(tmp_path_factory):
     rng = np.random.default_rng(7)
     for name in ("a", "b"):
         pixels = np.clip(rng.normal(128, 60, (H, W, 3)), 0, 255).astype(np.uint8)
-        png.write(str(images / f"{name}.png"), pixels)
+        Image.fromarray(pixels).save(images / f"{name}.png")
     yield {"model": os.path.join(trainer.checkpoint_dir, "best_model"),
            "images": images, "palette": trainer.train_loader.dataset.palette}
     shutil.rmtree(root, ignore_errors=True)
@@ -210,21 +210,23 @@ def test_cli_writes_segtpu_class_maps(mode, trained, tmp_path):
     seg_predict = seg_inf.make_predictor(
         SegtpuPSPNet(num_classes=CLASSES, backbone="resnet18"), params, stats)
     for name in ("a", "b"):
-        rgb = png.to_rgb(png.read(str(trained["images"] / f"{name}.png")))
+        with Image.open(trained["images"] / f"{name}.png") as image:
+            rgb = np.asarray(image.convert("RGB"))
         image = (rgb.astype(np.float32) / 255.0 - np.float32(MEAN)) / np.float32(STD)
         if mode == "sliding":
             want = seg_inf.sliding_predict(seg_predict, image, CLASSES)
         else:
             want = seg_inf.multi_scale_predict(
                 seg_predict, image, [0.75, 1.0, 1.25, 1.5, 1.75, 2.0], CLASSES)
-        written = png.read(str(out / f"{name}.png"))
-        assert written.color_type == 3
-        assert written.palette.reshape(-1).tolist() == \
-            trained["palette"] + [0] * (768 - len(trained["palette"]))
+        with Image.open(out / f"{name}.png") as written:
+            assert written.mode == "P"
+            assert written.getpalette() == \
+                trained["palette"] + [0] * (768 - len(trained["palette"]))
+            pixels = np.asarray(written)
         scale = np.abs(want).max()
         top2 = np.sort(want, axis=-1)[..., -2:]
         clear = top2[..., 1] - top2[..., 0] > TOL * scale
-        assert (written.pixels == want.argmax(-1))[clear].all()
+        assert (pixels == want.argmax(-1))[clear].all()
 
 
 def test_cli_without_device_raises_without_cuda(trained, tmp_path):

@@ -176,7 +176,7 @@ def test_train_steps_match_segtpu(trajectories, n_steps):
             assert rel_max(v.numpy(), w_sd[k].numpy()) < TOL, k
 
 
-def test_training_cli_trains_upernet_on_cpu():
+def test_training_cli_trains_upernet_on_cpu(tmp_path):
     synthetic = {"batch_size": 4, "num_classes": 3, "crop_size": 33,
                  "num_workers": 1, "device_normalize": True}
     config = {
@@ -192,7 +192,8 @@ def test_training_cli_trains_upernet_on_cpu():
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
-                    "monitor": "max Mean_IoU", "compute_dtype": "float32"},
+                    "monitor": "max Mean_IoU", "compute_dtype": "float32",
+                    "save_dir": str(tmp_path)},
     }
     trainer = train_cli.main(config, "cpu")
     assert isinstance(trainer.model, UperNet) and trainer.state.step == 2
