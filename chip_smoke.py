@@ -78,7 +78,21 @@ Phases, each announced on its own line:
 10. UperNet in-step check: both flat-row kernels on the x, dy and weight of
    ``head`` and ``FPN.smooth_conv.0`` from one bf16 step, against the plain
    versions, with cuDNN's own gradients printed beside them (not gated);
-11. the ``kernels`` JSON line (each kernel's launches on every path above),
+11. data: CityScapes on disk: a seeded CityScapes fine tree (32 train and
+    8 val 1024x2048 frames, raw label ids 0-33) written to the work
+    directory; the port's CityScapes loader alone (base 2048, 769 crops,
+    scale, rotate, flip and blur, batch 8, 8 workers) in samples/s with
+    thread and with process workers, whose batches must be bit-identical,
+    with labels in {0..18, 255}, and equal bit for bit once prefetched to
+    the card; PSPNet-R50 trained from it through ``segtpu_torch.train.main``
+    for 4 steps and a validation pass with the stem kernel on (4 launches,
+    the counts set to 0 just before and read just after), D and B from the
+    epoch log and per step; the train step on one device-resident batch,
+    then 5 timed and 3 traced steps fed by the prefetcher from the disk
+    loader; the repo's ``config.json`` (only data_dir, save_dir and epochs
+    set) trained for 5 steps and its validation on a view of the tree; the
+    inference CLI, sliding bf16, on one frame with the 769 run's best_model;
+12. the ``kernels`` JSON line (each kernel's launches on every path above),
     then the card's name and power limit, then ``{"ok": true, "device":
     {...}}`` as the last line.
 
@@ -93,6 +107,7 @@ import gc
 import json
 import math
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -355,7 +370,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
     import torch
 
     from segtpu_torch import train as train_cli
-    from segtpu_torch.trainer import _to_device
+    from segtpu_torch.data import DevicePrefetcher
 
     dev = torch.device("cuda")
     recorder.start()
@@ -385,7 +400,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
         after_train(trainer)
         phase(f"main path: {label}, timed")
 
-    val_images, val_labels = _to_device(next(iter(trainer.val_loader)), dev)
+    val_images, val_labels = next(iter(DevicePrefetcher(trainer.val_loader, dev)))
     loss, stats = trainer.eval_step(trainer.model, val_images, val_labels)
     correct, labeled = float(stats.correct), float(stats.labeled)
     check(math.isfinite(float(loss)), "non-finite eval loss")
@@ -393,7 +408,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
     check(0 <= correct <= labeled and float(stats.inter.sum()) == correct
           and bool((stats.inter <= stats.union).all()), f"SegStats {stats}")
 
-    images, labels = _to_device(next(iter(trainer.train_loader)), dev)
+    images, labels = next(iter(DevicePrefetcher(trainer.train_loader, dev)))
     torch.cuda.reset_peak_memory_stats()
     step_s = []
     for i in range(2 + TIMED_STEPS):
@@ -490,6 +505,7 @@ class StepRecorder:
                 if state.step == self.snap_before and self.snap is None:
                     self.snap = snapshot(state)
                 before = cw.stem_conv_wgrad.launches
+                t_in = time.perf_counter()
                 loss, stats = step(state, images, labels)
                 sample = (labels[:, ::7, ::7].cpu().numpy().tobytes()
                           + images[:, ::7, ::7].cpu().numpy().tobytes())
@@ -497,7 +513,8 @@ class StepRecorder:
                     "step": state.step, "batch": zlib.crc32(sample),
                     "lrs": [g["lr"] for g in state.optimizer.param_groups],
                     "loss": float(loss),
-                    "stem_launches": cw.stem_conv_wgrad.launches - before})
+                    "stem_launches": cw.stem_conv_wgrad.launches - before,
+                    "t_in": t_in, "t_out": time.perf_counter()})
                 return loss, stats
 
             return recorded
@@ -735,14 +752,19 @@ def checkpoint_and_resume(trainer, config, recorder, workdir, card):
                       "controls": controls}
 
 
-def block_frame(rng):
+def block_frame(rng, with_ids=False):
     """A FRAME-sized uint8 RGB image: 64-pixel blocks of colour plus noise,
-    structure at several scales."""
+    structure at several scales. With ``with_ids``, also a uint8 map of
+    CityScapes raw label ids 0-33 that follows the blocks."""
     import numpy as np
 
     blocks = rng.integers(0, 256, (FRAME[0] // 64, FRAME[1] // 64, 3))
     pixels = np.repeat(np.repeat(blocks, 64, 0), 64, 1) + rng.normal(0, 20, FRAME + (3,))
-    return np.clip(pixels, 0, 255).astype(np.uint8)
+    pixels = np.clip(pixels, 0, 255).astype(np.uint8)
+    if not with_ids:
+        return pixels
+    ids = np.repeat(np.repeat(blocks.sum(-1) % 34, 64, 0), 64, 1).astype(np.uint8)
+    return pixels, ids
 
 
 def varied_checkpoint(best, workdir, seed, batch):
@@ -1027,6 +1049,302 @@ def serving_phase(best, workdir, seed, card):
           f"{mismatched})")
     check(all(v == 0 for v in launches.values()), f"serving launched {launches}")
     return launches
+
+
+DISK_TRAIN, DISK_VAL = 32, 8  # frames of the seeded CityScapes tree
+DISK_LABELS = set(range(CLASSES)) | {255}
+
+
+def write_cityscapes_tree(root, seed):
+    """A CityScapes fine tree under ``root``: DISK_TRAIN train and DISK_VAL
+    val frames of FRAME size (``block_frame`` content) with raw label ids
+    0-33 that follow the blocks, ignored ids among them; PNG compress level
+    1, written by 8 threads. Returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    def write(job):
+        split, i = job
+        rng = np.random.default_rng([seed, i, split == "val"])
+        pixels, ids = block_frame(rng, with_ids=True)
+        stem = f"cityA_{i:06d}_000019"
+        Image.fromarray(pixels).save(os.path.join(
+            root, "leftImg8bit_trainvaltest/leftImg8bit", split, "cityA",
+            stem + "_leftImg8bit.png"), compress_level=1)
+        Image.fromarray(ids).save(os.path.join(
+            root, "gtFine_trainvaltest/gtFine", split, "cityA",
+            stem + "_gtFine_labelIds.png"), compress_level=1)
+
+    jobs = ([("train", i) for i in range(DISK_TRAIN)]
+            + [("val", i) for i in range(DISK_VAL)])
+    for split in ("train", "val"):
+        for sub in ("leftImg8bit_trainvaltest/leftImg8bit", "gtFine_trainvaltest/gtFine"):
+            os.makedirs(os.path.join(root, sub, split, "cityA"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    return time.perf_counter() - t0
+
+
+def disk_loaders(root, worker_type="thread"):
+    """(train, val) loader args of the disk phase: segtpu's CityScapes
+    augmentation at the main path's crop and batch."""
+    train = {"data_dir": root, "split": "train", "batch_size": BATCH,
+             "base_size": 2048, "crop_size": CROP, "augment": True, "scale": True,
+             "flip": True, "rotate": True, "blur": True, "shuffle": True,
+             "num_workers": 8, "device_normalize": True, "worker_type": worker_type}
+    val = {"data_dir": root, "split": "val", "batch_size": BATCH, "crop_size": CROP,
+           "val": True, "num_workers": 8, "device_normalize": True}
+    return train, val
+
+
+class Epochs:
+    """A loader's batches over ``n`` epochs in one stream, so that one
+    prefetcher feeds more steps than an epoch holds."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return self.n * len(self.loader)
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield from self.loader
+
+
+def disk_phase(workdir, seed, card, recorder):
+    """The data slice at full width: a seeded CityScapes tree on disk; its
+    loader alone (thread and process workers, bit-identical batches, the
+    labels' range); PSPNet-R50 trained from it through
+    ``segtpu_torch.train.main`` (4 steps and validation, stem kernel on),
+    with D and B from the epoch log and per step; 5 steps timed and 3 traced
+    fed by the prefetcher from the disk loader, beside the same trainer's
+    step on one device-resident batch; the prefetched batches against the
+    host's; the repo's config.json trained on the same tree; the inference
+    CLI, sliding bf16, on one frame with the 769 run's best_model. Returns
+    (launches of the training run, numbers)."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from segtpu_torch import inference as inference_cli
+    from segtpu_torch import train as train_cli
+    from segtpu_torch.data import CityScapes, DevicePrefetcher
+
+    dev = torch.device("cuda")
+    numbers = {"cpu_count": os.cpu_count(),
+               "affinity": sorted(os.sched_getaffinity(0))}
+    print(f"host: os.cpu_count() {numbers['cpu_count']}, CPU affinity "
+          f"{numbers['affinity']}")
+    root = os.path.join(workdir, "cityscapes")
+    numbers["tree_write_s"] = write_cityscapes_tree(root, seed)
+    print(f"tree: {DISK_TRAIN} train and {DISK_VAL} val {FRAME[0]}x{FRAME[1]} frames "
+          f"written in {numbers['tree_write_s']:.1f} s ({dir_bytes(root) / 1e6:.0f} MB)")
+
+    # the loader alone: one epoch (DISK_TRAIN samples) with each worker kind
+    epochs = {}
+    for kind in ("thread", "process"):
+        loader = CityScapes(**disk_loaders(root, kind)[0])
+        t0 = time.perf_counter()
+        epochs[kind] = list(loader)
+        secs = time.perf_counter() - t0
+        numbers[f"loader_{kind}_samples_per_s"] = DISK_TRAIN / secs
+        print(f"loader alone, {kind} workers (8): {DISK_TRAIN} samples in {secs:.2f} s, "
+              f"{DISK_TRAIN / secs:.1f} samples/s, {1e3 * secs / len(epochs[kind]):.0f} "
+              f"ms a batch of {BATCH}")
+        if kind == "process":
+            # the prefetched batches on the card against the host's
+            loader.set_epoch(0)
+            on_card = [(i.cpu().numpy(), l.cpu().numpy())
+                       for i, l in DevicePrefetcher(loader, dev)]
+            loader.close()
+    same = all(np.array_equal(a, b) for x, y in zip(epochs["thread"], epochs["process"])
+               for a, b in zip(x, y))
+    print(f"thread and process workers give bit-identical batches: {same}")
+    check(same and len(epochs["thread"]) == len(epochs["process"]) == DISK_TRAIN // BATCH,
+          "thread and process workers gave other batches")
+    prefetched = all(np.array_equal(a, b) for x, y in zip(on_card, epochs["thread"])
+                     for a, b in zip(x, y)) and len(on_card) == len(epochs["thread"])
+    print(f"prefetched batches on the card equal the host's bit for bit: {prefetched}")
+    check(prefetched, "the prefetched batches differ from the host's")
+    labels = set(np.unique(np.concatenate([b[1].ravel() for b in epochs["thread"]])).tolist())
+    print(f"label values in the train batches: {sorted(labels)}")
+    check(labels <= DISK_LABELS, f"labels outside 0-18 and 255: {labels - DISK_LABELS}")
+    check(epochs["thread"][0][0].shape == (BATCH, CROP, CROP, 3)
+          and epochs["thread"][0][0].dtype == np.uint8, "train batch shape or dtype")
+    del epochs, on_card
+
+    # where a sample's time goes, on one core: decoding, then the chain
+    dataset = CityScapes(**disk_loaders(root)[0]).dataset
+    decode_s, get_s = [], []
+    for i in range(4):
+        t0 = time.perf_counter()
+        dataset._load_data(i)
+        decode_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dataset.get(i, rng=random.Random(i))
+        get_s.append(time.perf_counter() - t0)
+    numbers["sample_decode_ms"] = 1e3 * sum(decode_s) / 4
+    numbers["sample_ms"] = 1e3 * sum(get_s) / 4
+    print(f"one sample on one core: {numbers['sample_ms']:.0f} ms, of which decoding "
+          f"the two PNGs {numbers['sample_decode_ms']:.0f} ms (mean of 4)")
+    del dataset
+
+    # PSPNet-R50 trained from the tree through the training CLI's main, on
+    # process workers (forked when train.main builds the loaders, before
+    # the model goes to the card)
+    train_args, val_args = disk_loaders(root, "process")
+    config = smoke_config({"type": "PSPNet", "args": {"backbone": "resnet50",
+                                                       "pallas_stem_wgrad": True}},
+                          os.path.join(workdir, "saved_disk"), save_period=1)
+    config["train_loader"] = {"type": "CityScapes", "args": train_args}
+    config["val_loader"] = {"type": "CityScapes", "args": val_args}
+    epoch_log = []
+    handler = logging.Handler()
+    handler.emit = lambda record: epoch_log.append(record.getMessage())
+    logging.getLogger("segtpu_torch.Trainer").addHandler(handler)
+    recorder.start()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(config, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    recorder.stop()
+    logging.getLogger("segtpu_torch.Trainer").removeHandler(handler)
+    print(f"trainer: {trainer.state.step} steps + validation in {wall:.1f} s (model "
+          f"build, loader start and validation included); launches {launches}")
+    check(trainer.state.step == STEPS, f"{trainer.state.step} steps, want {STEPS}")
+    check(launches == {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0,
+                       "flat_conv_dgrad": 0},
+          f"the disk run launched {launches}, want {STEPS} stem launches")
+    train_line = next(m for m in epoch_log if m.startswith("TRAIN"))
+    b_s, d_s = (float(train_line.split(f" {k} ")[1].split("s")[0]) for k in ("B", "D"))
+    numbers.update(epoch_log_B_s=b_s, epoch_log_D_s=d_s)
+    print(f"epoch log: {train_line}")
+    print(f"epoch log: D {d_s:.3f} s and B {b_s:.3f} s a step (averages over "
+          f"{STEPS} steps; each recorded step syncs on its loss)")
+    steps = recorder.steps
+    waits = [b["t_in"] - a["t_out"] for a, b in zip(steps, steps[1:])]
+    numbers["step_s"] = [r["t_out"] - r["t_in"] for r in steps]
+    numbers["wait_s"] = waits
+    print("per step: step " + ", ".join(f"{1e3 * t:.0f}" for t in numbers["step_s"])
+          + " ms; host time between steps " + ", ".join(f"{1e3 * t:.0f}" for t in waits)
+          + " ms")
+    log = trainer.history[-1]
+    print(f"epoch log: loss {log['loss']}, val_loss {log['val_loss']}, "
+          f"Mean_IoU {log['Mean_IoU']}, Pixel_Accuracy {log['Pixel_Accuracy']}")
+    check(math.isfinite(log["loss"]) and math.isfinite(log["val_loss"]),
+          f"non-finite loss {log}")
+    check([r["stem_launches"] for r in steps] == [1] * STEPS,
+          f"stem kernel launches per step {steps}")
+    best = os.path.join(trainer.checkpoint_dir, "best_model")
+    check(os.path.isdir(best), "the disk run wrote no best_model")
+
+    # the step on one device-resident batch, then 5 timed and 3 traced steps
+    # fed by the prefetcher from the disk loader, in one stream (the workers
+    # idle while the resident steps run)
+    def sync_ms(run, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    images, labels = next(iter(DevicePrefetcher(trainer.val_loader, dev)))
+    sync_ms(lambda: trainer.train_step(trainer.state, images, labels), 2)
+    numbers["resident_ms"] = sync_ms(
+        lambda: trainer.train_step(trainer.state, images, labels), TIMED_STEPS)
+    del images, labels
+    stream = iter(DevicePrefetcher(Epochs(trainer.train_loader, 3), dev))
+    waits = []
+
+    def fed_step():
+        t = time.perf_counter()
+        images, labels = next(stream)
+        waits.append(time.perf_counter() - t)
+        trainer.train_step(trainer.state, images, labels)
+
+    sync_ms(fed_step, 2)
+    del waits[:]
+    numbers["disk_fed_ms"] = sync_ms(fed_step, TIMED_STEPS)
+    numbers["disk_fed_wait_ms"] = [1e3 * w for w in waits]
+    print(f"main path: PSPNet-R50 {CROP}x{CROP} bs{BATCH} bf16 train step fed by the "
+          f"prefetcher from the disk loader {numbers['disk_fed_ms']:.1f} ms/step "
+          f"({BATCH * 1e3 / numbers['disk_fed_ms']:.2f} imgs/s), waiting for its batch "
+          + ", ".join(f"{w:.0f}" for w in numbers["disk_fed_wait_ms"])
+          + f" ms; on one device-resident batch {numbers['resident_ms']:.1f} ms/step "
+          f"[{card}]")
+    profile_steps(fed_step, TRACED_STEPS, card)
+    stream.close()
+    del trainer, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the repo's config.json: only data_dir, save_dir and epochs set; the
+    # data_dir is a view of the tree with BATCH train frames (one step an
+    # epoch), and 5 epochs reach its first validation (val_per_epochs 5)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "config.json")) as f:
+        user = json.load(f)
+    view = os.path.join(workdir, "cityscapes_view")
+    for sub, suffix in (("leftImg8bit_trainvaltest/leftImg8bit", "leftImg8bit"),
+                        ("gtFine_trainvaltest/gtFine", "gtFine_labelIds")):
+        os.makedirs(os.path.join(view, sub, "train", "cityA"))
+        os.symlink(os.path.join(root, sub, "val"), os.path.join(view, sub, "val"))
+        for i in range(BATCH):
+            name = f"cityA_{i:06d}_000019_{suffix}.png"
+            os.symlink(os.path.join(root, sub, "train", "cityA", name),
+                       os.path.join(view, sub, "train", "cityA", name))
+    for key in ("train_loader", "val_loader"):
+        user[key]["args"]["data_dir"] = view
+    user["trainer"]["save_dir"] = os.path.join(workdir, "saved_user")
+    user["trainer"]["epochs"] = 5
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(user, "cuda")
+    torch.cuda.synchronize()
+    user_launches = read_launches()
+    log = trainer.history[-1]
+    numbers["config_json"] = {"steps": trainer.state.step, "s": time.perf_counter() - t0,
+                              "loss": log["loss"], "val_loss": log.get("val_loss"),
+                              "Mean_IoU": log.get("Mean_IoU"), "launches": user_launches}
+    print(f"config.json (base 400, crop 380, rotate; val crop 480): "
+          f"{json.dumps(numbers['config_json'])}")
+    check(trainer.state.step == 5 and math.isfinite(log["loss"])
+          and "val_loss" in log and math.isfinite(log["val_loss"]),
+          f"config.json's run: {trainer.state.step} steps, {log}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the inference CLI on the 769 run's best_model, whose config names
+    # CityScapes (dataset_meta answers for it without the tree)
+    images_dir = os.path.join(workdir, "disk_frame")
+    os.makedirs(images_dir)
+    frame = os.path.join(root, "leftImg8bit_trainvaltest/leftImg8bit/val/cityA",
+                         "cityA_000000_000019_leftImg8bit.png")
+    os.symlink(frame, os.path.join(images_dir, "frame.png"))
+    reset_launches()
+    result = inference_cli.main([
+        "--model", best, "--images", images_dir, "--output",
+        os.path.join(workdir, "disk_out"), "--extension", "png", "--mode", "sliding",
+        "--dtype", "bfloat16"])
+    from PIL import Image
+
+    with Image.open(result["written"][0]) as written:
+        classes = np.asarray(written)
+    numbers["inference_s"] = result["seconds"][0]
+    print(f"inference CLI, sliding bf16, best_model of the disk run: "
+          f"{result['seconds'][0]:.2f} s for one {FRAME[0]}x{FRAME[1]} frame, "
+          f"{len(np.unique(classes))} classes in its map; launches {read_launches()}")
+    check(classes.shape == FRAME and classes.max() < CLASSES, "the written class map")
+    return launches, numbers
 
 
 def main(argv=None):
@@ -1385,12 +1703,18 @@ def run(args, workdir):
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("data: CityScapes on disk")
+    disk_launches, disk_numbers = disk_phase(workdir, args.seed, card, recorder)
+    print("data: " + json.dumps(disk_numbers))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
                  "are those of the flat_conv phase, 0 on every main path")
     paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
              "inference": infer_launches, "serving export": serve_launches,
-             "UperNet-R101": uper_launches}
+             "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches}
     stem_main = stem_times[0]
     kernels = [{
         "name": "stem_conv_wgrad", "route": "cuda",

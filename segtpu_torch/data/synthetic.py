@@ -1,6 +1,6 @@
 """Synthetic in-memory dataset: deterministic images whose pixels carry a
 learnable signal per class. Counterpart of ``segtpu/data/synthetic.py``,
-sample for sample."""
+sample for sample, with every augmentation flag acting."""
 
 from __future__ import annotations
 
@@ -42,19 +42,20 @@ class SyntheticDataset(BaseDataset):
 
 
 class Synthetic(DataLoader):
-    """Loader over :class:`SyntheticDataset` with segtpu's config keys.
-    ``scale`` acts only together with ``base_size``, which needs cv2."""
+    """Loader over :class:`SyntheticDataset` with segtpu's config keys."""
 
     def __init__(self, data_dir=None, batch_size=8, split="train",
                  crop_size=64, base_size=None, scale=False, num_workers=1,
                  val=False, shuffle=True, flip=False, rotate=False,
-                 blur=False, augment=True, num_classes=8, size=64,
-                 image_hw=96, device_normalize=False):
+                 blur=False, augment=True, val_split=None, return_id=False,
+                 num_classes=8, size=64, image_hw=96, worker_type="thread",
+                 device_normalize=False):
         self.MEAN, self.STD = MEAN, STD
         dataset = SyntheticDataset(
             num_classes=num_classes, size=size, image_hw=image_hw,
             root=data_dir or "", split=split, mean=MEAN, std=STD,
             augment=augment, crop_size=crop_size, base_size=base_size,
-            flip=flip, blur=blur, rotate=rotate, val=val,
-            device_normalize=device_normalize)
-        super().__init__(dataset, batch_size, shuffle, num_workers)
+            scale=scale, flip=flip, blur=blur, rotate=rotate,
+            return_id=return_id, val=val, device_normalize=device_normalize)
+        super().__init__(dataset, batch_size, shuffle, num_workers,
+                         val_split or 0.0, worker_type=worker_type)

@@ -38,6 +38,8 @@ def main(config, device="cuda", resume=None):
     val_loader = None
     if "val_loader" in config:
         val_loader = get_instance(DATASETS, "val_loader", config)
+    elif getattr(train_loader, "val_split", 0):
+        val_loader = train_loader.get_val_loader()
     arch = config["arch"]
     model = get_model(arch["type"], device=device, seed=config.get("seed", 0),
                       num_classes=train_loader.dataset.num_classes,

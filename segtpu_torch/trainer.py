@@ -25,7 +25,6 @@ import threading
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from segtpu_torch import losses as loss_lib
@@ -34,6 +33,7 @@ from segtpu_torch import resolve_device
 from segtpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from segtpu_torch.core.state import TrainState, make_optimizer
 from segtpu_torch.core.steps import make_eval_step, make_train_step
+from segtpu_torch.data import DevicePrefetcher
 from segtpu_torch.metrics import AverageMeter, SegStats
 from segtpu_torch.utils.helpers import dir_exists
 
@@ -57,14 +57,6 @@ def setup_logging(level=logging.INFO) -> logging.Logger:
     logger.setLevel(level)
     logger.propagate = False
     return logger
-
-
-def _to_device(batch, device):
-    images, labels = (torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
-    if device.type == "cuda":
-        images, labels = images.pin_memory(), labels.pin_memory()
-    return (images.to(device, non_blocking=True),
-            labels.to(device, non_blocking=True))
 
 
 class Trainer:
@@ -273,8 +265,9 @@ class Trainer:
             self.train_loader.skip_batches(skip)
         iters_per_epoch = len(self.train_loader)
         tic = time.perf_counter()
-        for it, batch in enumerate(self.train_loader):
-            images, labels = _to_device(batch, self.device)
+        # D: the wait for the next batch on the device
+        for it, (images, labels) in enumerate(
+                DevicePrefetcher(self.train_loader, self.device)):
             data_time.update(time.perf_counter() - tic)
             loss, stats = self.train_step(self.state, images, labels)
             total = total + stats
@@ -312,8 +305,7 @@ class Trainer:
         total = SegStats.zeros(self.num_classes, self.device)
         loss_acc = torch.zeros((), device=self.device)
         weight_acc = torch.zeros((), device=self.device)
-        for batch in self.val_loader:
-            images, labels = _to_device(batch, self.device)
+        for images, labels in DevicePrefetcher(self.val_loader, self.device):
             loss, stats = self.eval_step(self.model, images, labels)
             total = total + stats
             loss_acc += loss * stats.labeled

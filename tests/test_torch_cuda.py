@@ -332,3 +332,29 @@ def test_sliding_predict_on_the_card_matches_the_cpu(cuda_device):
     cpu, card = canvases
     assert card.shape == cpu.shape == (40, 56, 3)
     assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+def test_prefetched_batches_on_the_card_equal_the_host_batches(cuda_device):
+    """The prefetcher's side-stream copies, consumed on the current stream
+    while a kernel there still runs, give the host batches bit for bit; an
+    early exit ends the producer."""
+    from segtpu_torch.data import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (4, 97, 97, 3)).astype(np.uint8),
+                rng.integers(0, 19, (4, 97, 97)).astype(np.int32)) for _ in range(6)]
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    got = []
+    for images, labels in DevicePrefetcher(batches, cuda_device):
+        busy = busy @ busy / 2048  # work queued on the current stream
+        assert images.device.type == "cuda" and labels.dtype == torch.int32
+        got.append((images.cpu().numpy(), labels.cpu().numpy()))
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for (gi, gl), (wi, wl) in zip(got, batches):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gl, wl)
+    it = iter(DevicePrefetcher(batches, cuda_device, depth=1))
+    next(it)
+    it.close()

@@ -146,13 +146,23 @@ def test_fast_argmax_takes_the_first_maximum():
 
 
 def test_dataset_meta_builds_synthetic_and_refuses_on_disk_datasets():
+    """Synthetic is built; the on-disk datasets answer without their data
+    (tests/test_torch_datasets.py holds them against segtpu's), and refuse a
+    split or a dataset they do not know."""
     cfg = {"train_loader": {"type": "Synthetic", "args": {"num_classes": 5, "size": 2}}}
     mean, std, palette, num_classes = dataset_meta(cfg)
     assert (list(mean), list(std), num_classes) == (MEAN, STD, 5)
     assert len(palette) == 15
-    for name in ("VOC", "COCO", "ADE20K", "CityScapes", "DeepScene"):
-        with pytest.raises(NotImplementedError, match="data slice"):
-            dataset_meta({"train_loader": {"type": name, "args": {}}})
+    for name, classes in (("VOC", 21), ("COCO", 182), ("ADE20K", 150),
+                          ("CityScapes", 19), ("DeepScene", 7)):
+        split = {"ADE20K": "training", "DeepScene": "training",
+                 "COCO": "train2017"}.get(name, "train")
+        args = {"data_dir": "/nonexistent", "split": split}
+        assert dataset_meta({"train_loader": {"type": name, "args": args}})[3] == classes
+        with pytest.raises(ValueError, match="unknown split"):
+            dataset_meta({"train_loader": {"type": name, "args": {"split": "bogus"}}})
+    with pytest.raises(KeyError, match="unknown dataset"):
+        dataset_meta({"train_loader": {"type": "Cityscapes", "args": {}}})
 
 
 @pytest.fixture(scope="module")

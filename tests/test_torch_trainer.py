@@ -141,16 +141,3 @@ def test_val_loader_pads_the_tail_and_device_normalize_matches_host():
                     torch.float32)
     np.testing.assert_allclose(x.permute(0, 2, 3, 1).numpy(), host_images,
                                rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("kwargs", [dict(base_size=48), dict(rotate=True),
-                                    dict(blur=True)])
-def test_cv2_branches_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Synthetic(batch_size=2, size=2, crop_size=33, image_hw=40, **kwargs)
-
-
-def test_val_resize_raises():
-    loader = Synthetic(batch_size=2, size=2, crop_size=33, image_hw=40, val=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(iter(loader))
