@@ -78,7 +78,31 @@ Phases, each announced on its own line:
 10. UperNet in-step check: both flat-row kernels on the x, dy and weight of
    ``head`` and ``FPN.smooth_conv.0`` from one bf16 step, against the plain
    versions, with cuDNN's own gradients printed beside them (not gated);
-11. data: CityScapes on disk: a seeded CityScapes fine tree (32 train and
+11. DeepLabV3+-Xception main path: ``segtpu_torch.train.main`` trains
+    DeepLab with segtpu's Xception at full width and depth (output stride
+    16; 19 classes, 769x769, batch 8, uint8 transport, bf16 autocast) under
+    CE_DiceLoss and AdamW with OneCycle for a few steps and a validation
+    pass (no hand-written kernel: every count 0), then times and traces the
+    step as in phase 6, the trace recording op shapes so that the depthwise
+    convs' kernels (forward and backward) form a category of their own;
+    the inference CLI, sliding bf16, on one seeded 1024x2048 frame with its
+    best_model;
+12. DeepLabV3+-R101 main path: the same at output stride 16 with the exact
+    LovaszSoftmax and SGD under Poly, with the traced ms of the Lovász sort,
+    its cumsums and its gathers per step;
+13. losses on the card: every name of the port's ``LOSSES``, plus
+    ``lovasz_hinge`` and ``binary_xloss``, on bf16 logits 8x19x769x769 with
+    255-ignored labels: forward + backward ms and peak memory at full size;
+    value and logit gradient at a LOSS_CROP crop of the same draw, in
+    float64 and float32 on the card, against float64 on the CPU;
+14. optimizers and freezes on the card: PSPNet-R50 with the stem kernel at
+    769x769, batch 8, 2 steps each of Adam, AdamW, centered RMSprop, Adagrad
+    with lr_decay, SGD under OneCycle, freeze_backbone and freeze_bn from
+    one set of weights: losses finite, the stem kernel's launches per step,
+    the frozen backbone's parameters and the frozen running statistics bit
+    for bit; AdamW under OneCycle saved after its first step and resumed,
+    its resumed loss equal to the uninterrupted run's;
+15. data: CityScapes on disk: a seeded CityScapes fine tree (32 train and
     8 val 1024x2048 frames, raw label ids 0-33) written to the work
     directory; the port's CityScapes loader alone (base 2048, 769 crops,
     scale, rotate, flip and blur, batch 8, 8 workers) in samples/s with
@@ -92,7 +116,7 @@ Phases, each announced on its own line:
     loader; the repo's ``config.json`` (only data_dir, save_dir and epochs
     set) trained for 5 steps and its validation on a view of the tree; the
     inference CLI, sliding bf16, on one frame with the 769 run's best_model;
-12. the ``kernels`` JSON line (each kernel's launches on every path above),
+16. the ``kernels`` JSON line (each kernel's launches on every path above),
     then the card's name and power limit, then ``{"ok": true, "device":
     {...}}`` as the last line.
 
@@ -175,6 +199,11 @@ TIMED_STEPS, TRACED_STEPS = 5, 3
 # kernel-name substrings -> category of the traced step, first match wins
 CATEGORIES = [
     ("stem_wgrad", "stem weight gradient (segtpu_torch CUDA kernel)"),
+    ("Sort", "sort (Lovász)"),
+    ("sort", "sort (Lovász)"),
+    ("Scan", "cumsum (Lovász)"),
+    ("scan", "cumsum (Lovász)"),
+    ("scatter_gather", "gather (Lovász, CE)"),
     ("flat_wgrad", "flat-row conv wgrad (segtpu_torch CUDA kernel)"),
     ("flat_dgrad", "flat-row conv dgrad (segtpu_torch CUDA kernel)"),
     ("adaptive_average", "adaptive average pool (PSP pyramid)"),
@@ -305,13 +334,42 @@ def device_us(evt) -> float:
     raise RuntimeError("chip_smoke: torch.profiler event without a device time")
 
 
-def profile_steps(step, steps, card):
+DEPTHWISE = "depthwise conv (cuDNN)"
+
+
+def _depthwise_op(evt) -> bool:
+    """A traced convolution op (forward or backward) whose weight is (C, 1,
+    k, k) on a C-channel input, C > 1; the shapes are recorded ones."""
+    shapes = getattr(evt, "input_shapes", None) or []
+    if evt.name == "aten::convolution" and len(shapes) > 1:
+        x, w = shapes[0], shapes[1]
+    elif evt.name == "aten::convolution_backward" and len(shapes) > 2:
+        x, w = shapes[1], shapes[2]
+    else:
+        return False
+    return (len(x) == 4 and len(w) == 4 and w[1] == 1 and w[0] == x[1] > 1)
+
+
+def _kernels_under(evt):
+    """(name, device us) of every kernel launched by ``evt`` or its CPU
+    children."""
+    out = [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+    for child in evt.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def profile_steps(step, steps, card, depthwise=False):
     """Trace ``steps`` calls of ``step``; print the wall and device time per
-    step, the idle share and the device time by kernel category."""
+    step, the idle share and the device time by kernel category. With
+    ``depthwise`` the trace records op shapes, and the kernels launched by
+    depthwise convolutions (forward and backward) form a category of their
+    own; returns the device ms per step by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=depthwise) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -327,10 +385,24 @@ def profile_steps(step, steps, card):
     print(f"traced: {steps} steps, wall {wall_ms:.1f} ms/step, device busy "
           f"{busy_ms:.1f} ms/step, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} "
           f"[{card}]")
+    # kernel name -> device us spent under depthwise convolution ops
+    dw = {}
+    if depthwise:
+        for evt in prof.events():
+            if _depthwise_op(evt):
+                for name, us in _kernels_under(evt):
+                    dw[name] = dw.get(name, 0.0) + us
     sums = {}
     for e in kernels:
         cat = next((c for key, c in CATEGORIES if key in e.key), "other")
-        sums[cat] = sums.get(cat, 0.0) + device_us(e) / 1e3 / steps
+        us = device_us(e) - min(dw.get(e.key, 0.0), device_us(e))
+        sums[cat] = sums.get(cat, 0.0) + us / 1e3 / steps
+    if depthwise:
+        sums[DEPTHWISE] = sum(dw.values()) / 1e3 / steps
+        print(f"  depthwise convs (op shapes recorded in this trace), their "
+              f"kernels (ms/step):")
+        for name, us in sorted(dw.items(), key=lambda kv: -kv[1]):
+            print(f"  {us / 1e3 / steps:8.3f}  {name[:100]}")
     for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms/step {ms / busy_ms:6.3f}  {cat}")
     other = [e for e in kernels if not any(key in e.key for key, _ in CATEGORIES)]
@@ -338,6 +410,7 @@ def profile_steps(step, steps, card):
         print(f"  {title} (ms/step, calls/step):")
         for e in sorted(events, key=device_us, reverse=True)[:8 if events is kernels else 4]:
             print(f"  {device_us(e) / 1e3 / steps:8.3f} {e.count / steps:5.1f}  {e.key[:100]}")
+    return sums
 
 
 def check(cond, msg):
@@ -361,12 +434,14 @@ def read_launches():
             for fn in (cw.stem_conv_wgrad, fc.flat_conv_wgrad, fc.flat_conv_dgrad)}
 
 
-def train_main_path(label, config, want_launches, card, recorder, after_train=None):
+def train_main_path(label, config, want_launches, card, recorder, after_train=None,
+                    depthwise=False):
     """Train ``config`` through ``segtpu_torch.train.main`` with the launch
     counts set to 0 just before and read just after, its steps recorded;
     check the epoch log; call ``after_train(trainer)``; check an eval step;
     time and trace the train step (outside the recorded run). Returns
-    (trainer, launches, one device-resident train batch, one val batch)."""
+    (trainer, launches, one device-resident train batch, one val batch, the
+    timed step's numbers with the traced device ms by category)."""
     import torch
 
     from segtpu_torch import train as train_cli
@@ -423,9 +498,12 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
           f"{ms_step:.1f} ms/step (min {1e3 * min(step_s):.1f}), "
           f"{BATCH * 1e3 / ms_step:.2f} imgs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    profile_steps(lambda: trainer.train_step(trainer.state, images, labels),
-                  TRACED_STEPS, card)
-    return trainer, launches, (images, labels), (val_images, val_labels)
+    numbers = {"ms_per_step": ms_step, "imgs_per_s": BATCH * 1e3 / ms_step,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    numbers["device_ms_by_category"] = profile_steps(
+        lambda: trainer.train_step(trainer.state, images, labels), TRACED_STEPS, card,
+        depthwise=depthwise)
+    return trainer, launches, (images, labels), (val_images, val_labels), numbers
 
 
 def keep_io(store):
@@ -1347,6 +1425,305 @@ def disk_phase(workdir, seed, card, recorder):
     return launches, numbers
 
 
+# the DeepLab paths and the loss and optimizer phases
+DEEPLAB_XCEPTION = {"type": "DeepLab", "args": {"backbone": "xception",
+                                                "output_stride": 16}}
+DEEPLAB_R101 = {"type": "DeepLab", "args": {"backbone": "resnet101", "output_stride": 16}}
+# the losses phase: the card's float64 run of each loss at LOSS_CROP against
+# the CPU's float64 run on the same values, value and logit gradient
+# (relative to its largest element): the same arithmetic in other orders
+LOSS_F64_TOL = 1e-9
+# the card's float32 run (the bf16 logits upcast, as in training) against
+# the same CPU float64 reference: float32 sums over 8*97*97 pixels. The
+# gradients of the Lovasz losses are printed, not held: each of their
+# elements is the difference of two Jaccard values near 1 that differ by
+# about 1/union, which float32 leaves with a relative error of about
+# 6e-8 * union (5.6e-4 at the hinge's 9409 pixels an image); and the fp32
+# errors of the softmax forms can tie, or fall on the other side of a bin
+# edge, where the float64 ones do not. Their float64 runs above are held
+LOSS_F32_TOL = 1e-4
+LOSS_CROP = 97
+LOVASZ_LOSSES = ("LovaszSoftmax", "LovaszSoftmaxExact", "LovaszSoftmaxFast",
+                 "lovasz_hinge")
+
+
+def deeplab_config(arch, save_dir, loss, optimizer, scheduler):
+    config = smoke_config(arch, save_dir, save_period=1)
+    config.update(loss=loss, optimizer=optimizer, lr_scheduler=scheduler)
+    return config
+
+
+def losses_phase(card):
+    """Every loss of ``segtpu_torch.losses.LOSSES`` plus ``lovasz_hinge``
+    and ``binary_xloss`` on bf16 logits 8x19x769x769 with 255-ignored
+    labels: forward + backward ms at full size and the peak memory; value
+    and logit gradient at a LOSS_CROP crop of the same draw, in float64 and
+    in float32 on the card, against float64 on the CPU."""
+    import torch
+
+    from segtpu_torch import losses
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(400)
+    logits = torch.randn(BATCH, CLASSES, CROP, CROP, generator=g, device=dev).bfloat16()
+    labels = torch.randint(0, CLASSES, (BATCH, CROP, CROP), generator=g, device=dev)
+    labels[torch.rand(labels.shape, generator=g, device=dev) < 0.1] = 255
+    binary = torch.where(labels == 255, labels, labels % 2)
+    cases = {name: (fn, logits, labels) for name, fn in losses.LOSSES.items()}
+    cases["lovasz_hinge"] = (losses.lovasz_hinge, logits[:, 0], binary)
+    cases["binary_xloss"] = (losses.binary_xloss, logits[:, 0], binary)
+    numbers = {}
+    for name, (fn, lg, tg) in cases.items():
+        x = lg.detach().clone().requires_grad_()
+
+        def run():
+            fn(x, tg).backward()
+            x.grad = None
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(run, iters=3, warmup=1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        crop = (..., slice(0, LOSS_CROP), slice(0, LOSS_CROP))
+        lc, tc = lg[crop].contiguous(), tg[crop].contiguous()
+        results = {}
+        for where, dtype in (("cpu", torch.float64), ("cuda", torch.float64),
+                             ("cuda", torch.float32)):
+            xc = lc.to(where, dtype).requires_grad_()
+            value = fn(xc, tc.to(where))
+            value.backward()
+            results[(where, dtype)] = (value.detach().double().cpu(),
+                                       xc.grad.double().cpu())
+        ref_v, ref_g = results[("cpu", torch.float64)]
+        errs = {}
+        for key, label in ((("cuda", torch.float64), "f64"), (("cuda", torch.float32), "f32")):
+            v, gr = results[key]
+            errs[label] = (abs(float(v - ref_v)) / max(abs(float(ref_v)), 1e-30),
+                           float((gr - ref_g).abs().max() / ref_g.abs().max().clamp_min(1e-30)))
+        print(f"loss {name}: forward+backward {ms:.3f} ms at {BATCH}x{CLASSES}x{CROP}x"
+              f"{CROP} bf16, peak memory {peak:.2f} GiB above its inputs; at "
+              f"{LOSS_CROP}x{LOSS_CROP} against CPU float64: card float64 value rel "
+              f"err {errs['f64'][0]:.2e}, gradient {errs['f64'][1]:.2e} (tol "
+              f"{LOSS_F64_TOL}); card float32 value {errs['f32'][0]:.2e}, gradient "
+              f"{errs['f32'][1]:.2e} (tol {LOSS_F32_TOL}"
+              f"{', gradient not held' if name in LOVASZ_LOSSES else ''}) [{card}]",
+              flush=True)
+        check(math.isfinite(float(ref_v)) and ref_g.isfinite().all(),
+              f"{name}: non-finite reference")
+        check(max(errs["f64"]) < LOSS_F64_TOL, f"{name} on the card in float64: {errs}")
+        check(errs["f32"][0] < LOSS_F32_TOL, f"{name}'s float32 value: {errs}")
+        if name not in LOVASZ_LOSSES:
+            check(errs["f32"][1] < LOSS_F32_TOL, f"{name}'s float32 gradient: {errs}")
+        numbers[name] = {"ms": ms, "peak_gib": peak, "f64_err": errs["f64"],
+                         "f32_err": errs["f32"]}
+        del x, lc, tc, results
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def optimizer_phase(workdir, card):
+    """PSPNet-R50 (``pallas_stem_wgrad``) at 769x769, batch 8, bf16: from one
+    set of seeded weights, 2 steps each of Adam, AdamW, centered RMSprop,
+    Adagrad (lr_decay), SGD under OneCycle, freeze_backbone and freeze_bn
+    (both SGD under Poly) on two seeded device-resident batches. Losses
+    finite; the stem kernel's launches counted per step (1, or 0 with the
+    backbone frozen: no backbone parameter needs a gradient, so no backward
+    reaches the stem conv); the backbone's parameters bit-identical under
+    freeze_backbone and every running statistic under freeze_bn. AdamW under
+    OneCycle is saved after its first step and resumed into a fresh state:
+    its resumed loss must equal the uninterrupted run's second."""
+    import torch
+
+    from segtpu_torch import losses
+    from segtpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.core.steps import make_train_step
+    from segtpu_torch.models import get_model
+    from segtpu_torch.ops import conv_wgrad as cw
+
+    dev = torch.device("cuda")
+    model = get_model("PSPNet", device="cuda", seed=5, num_classes=CLASSES,
+                      backbone="resnet50", pallas_stem_wgrad=True)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(500)
+    batches = []
+    for _ in range(2):
+        images = torch.randint(0, 256, (BATCH, CROP, CROP, 3), generator=g, device=dev,
+                               dtype=torch.uint8)
+        labels = torch.randint(0, CLASSES, (BATCH, CROP, CROP), generator=g, device=dev)
+        labels[:, :64, :64] = 255
+        batches.append((images, labels))
+    norm = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+    step = make_train_step(losses.cross_entropy, compute_dtype=torch.bfloat16,
+                           norm_stats=norm)
+    sched = dict(num_epochs=1, iters_per_epoch=10)
+    runs = {
+        "Adam": dict(optimizer_type="Adam", lr=1e-3, weight_decay=1e-4),
+        "AdamW": dict(optimizer_type="AdamW", lr=1e-3, weight_decay=1e-2,
+                      scheduler_type="OneCycle"),
+        "RMSprop centered": dict(optimizer_type="RMSprop", lr=1e-3, centered=True,
+                                 momentum=0.9),
+        "Adagrad lr_decay": dict(optimizer_type="Adagrad", lr=1e-2, lr_decay=0.1,
+                                 initial_accumulator_value=0.1),
+        "SGD OneCycle": dict(optimizer_type="SGD", lr=0.01, scheduler_type="OneCycle"),
+        "freeze_backbone": dict(optimizer_type="SGD", lr=0.01, freeze_backbone=True),
+        "freeze_bn": dict(optimizer_type="SGD", lr=0.01),
+    }
+
+    def fresh(kw, freeze_bn=False):
+        model.load_state_dict(initial)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        model.freeze_bn = freeze_bn
+        return TrainState(model, *make_optimizer(model, **sched, **kw))
+
+    def timed_step(state, batch):
+        before = cw.stem_conv_wgrad.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = step(state, *batch)
+        loss = float(loss)
+        return loss, 1e3 * (time.perf_counter() - t), cw.stem_conv_wgrad.launches - before
+
+    numbers = {}
+    torch.manual_seed(7)
+    for name, kw in runs.items():
+        state = fresh(kw, freeze_bn=name == "freeze_bn")
+        out = [timed_step(state, b) for b in batches]
+        after = model.state_dict()
+        losses_, ms, launches = zip(*out)
+        numbers[name] = {"losses": losses_, "ms": ms, "stem_launches": launches}
+        print(f"optimizer {name}: losses {losses_}, ms/step {tuple(round(m, 1) for m in ms)}"
+              f" (the first with its state's allocation), stem launches per step "
+              f"{launches} [{card}]", flush=True)
+        check(all(math.isfinite(v) for v in losses_), f"{name}: non-finite loss {losses_}")
+        want = (0, 0) if name == "freeze_backbone" else (1, 1)
+        check(launches == want, f"{name}: stem launches per step {launches}, want {want}")
+        backbone = [k for k in after if k.split(".")[0] in model.backbone_modules
+                    and "running_" not in k and "num_batches" not in k]
+        stats = [k for k in after if "running_" in k]
+        if name == "freeze_backbone":
+            same = all(torch.equal(after[k], initial[k]) for k in backbone)
+            moved = not torch.equal(after["initial.1.running_mean"],
+                                    initial["initial.1.running_mean"])
+            print(f"freeze_backbone: {len(backbone)} backbone tensors bit-identical: "
+                  f"{same}; backbone BN statistics moved: {moved}")
+            check(same and moved, "freeze_backbone: the backbone moved, or its BN "
+                  "statistics did not")
+        if name == "freeze_bn":
+            same = all(torch.equal(after[k], initial[k]) for k in stats)
+            trained = not torch.equal(after["initial.1.weight"], initial["initial.1.weight"])
+            print(f"freeze_bn: {len(stats)} running statistics bit-identical: {same}; "
+                  f"BN scales trained: {trained}")
+            check(same and trained, "freeze_bn: a running statistic moved, or the "
+                  "BN scales did not train")
+        del state
+    model.freeze_bn = False
+
+    # AdamW under OneCycle: save after its first step, then resume
+    torch.manual_seed(8)
+    state = fresh(runs["AdamW"])
+    step(state, *batches[0])
+    path = save_checkpoint(workdir, "adamw-onecycle", state, 0, float("nan"), {}, "PSPNet")
+    want_loss = float(step(state, *batches[1])[0])
+    resumed = fresh(runs["AdamW"])
+    load_checkpoint(path, resumed)
+    got_loss = float(step(resumed, *batches[1])[0])
+    print(f"AdamW under OneCycle, resumed after step 1: resumed loss {got_loss!r}, "
+          f"uninterrupted {want_loss!r}, update count {resumed.step}")
+    check(got_loss == want_loss and resumed.step == 2,
+          f"the resumed AdamW loss {got_loss} is not the uninterrupted run's {want_loss}")
+    numbers["AdamW resumed"] = {"loss": got_loss, "uninterrupted": want_loss}
+    for p in model.parameters():
+        p.requires_grad_(True)
+    del model, state, resumed, batches, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def deeplab_inference(best, workdir, seed, card):
+    """The inference CLI, sliding bf16, on one seeded 1024x2048 frame with the
+    DeepLab run's best_model; returns (launches, seconds)."""
+    import numpy as np
+    from PIL import Image
+
+    from segtpu_torch import inference as inference_cli
+
+    images_dir = os.path.join(workdir, "deeplab_frame")
+    os.makedirs(images_dir)
+    Image.fromarray(block_frame(np.random.default_rng(seed + 7))).save(
+        os.path.join(images_dir, "frame.png"))
+    reset_launches()
+    result = inference_cli.main([
+        "--model", best, "--images", images_dir, "--output",
+        os.path.join(workdir, "deeplab_out"), "--extension", "png", "--mode", "sliding",
+        "--dtype", "bfloat16"])
+    launches = read_launches()
+    with Image.open(result["written"][0]) as written:
+        classes = np.asarray(written)
+    print(f"inference CLI, sliding bf16, DeepLabV3+-Xception best_model: "
+          f"{result['seconds'][0]:.2f} s for one {FRAME[0]}x{FRAME[1]} frame, "
+          f"{len(np.unique(classes))} classes in its map; launches {launches} [{card}]")
+    check(classes.shape == FRAME and classes.max() < CLASSES, "the written class map")
+    return launches, result["seconds"][0]
+
+
+def deeplab_phases(workdir, seed, card, recorder):
+    """DeepLabV3+-Xception (CE_DiceLoss, AdamW under OneCycle, depthwise convs
+    as a category of the trace) and the inference CLI on its best_model,
+    then DeepLabV3+-R101 (exact LovaszSoftmax, SGD under Poly, the Lovász
+    tail's traced ms). Returns (launches by path, numbers)."""
+    import torch
+
+    no_kernel = {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}
+    phase("main path: DeepLabV3+-Xception")
+    trainer, dlx_launches, _, _, numbers = train_main_path(
+        "DeepLabV3+-Xception", deeplab_config(
+            DEEPLAB_XCEPTION, os.path.join(workdir, "saved"), "CE_DiceLoss",
+            {"type": "AdamW", "differential_lr": True,
+             "args": {"lr": 1e-3, "weight_decay": 1e-2}},
+            {"type": "OneCycle", "args": {}}),
+        no_kernel, card, recorder, depthwise=True)
+    check(numbers["device_ms_by_category"].get(DEPTHWISE, 0.0) > 0,
+          "no device time attributed to the depthwise convs")
+    deeplab_numbers = {"DeepLabV3+-Xception": numbers}
+    dlx_best = os.path.join(trainer.checkpoint_dir, "best_model")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("inference: DeepLabV3+-Xception")
+    dl_infer_launches, deeplab_numbers["inference_s"] = deeplab_inference(
+        dlx_best, workdir, seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("main path: DeepLabV3+-R101")
+    trainer, dlr_launches, _, _, numbers = train_main_path(
+        "DeepLabV3+-R101", deeplab_config(
+            DEEPLAB_R101, os.path.join(workdir, "saved"), "LovaszSoftmax",
+            {"type": "SGD", "differential_lr": True,
+             "args": {"lr": 0.01, "weight_decay": 1e-4, "momentum": 0.9}},
+            {"type": "Poly", "args": {}}),
+        no_kernel, card, recorder)
+    cats = numbers["device_ms_by_category"]
+    tail = {k: cats.get(k, 0.0) for k in ("sort (Lovász)", "cumsum (Lovász)",
+                                          "gather (Lovász, CE)")}
+    print(f"Lovász tail, traced: sort {tail['sort (Lovász)']:.3f}, cumsum "
+          f"{tail['cumsum (Lovász)']:.3f}, gathers {tail['gather (Lovász, CE)']:.3f} "
+          f"ms per traced train step [{card}]")
+    check(tail["sort (Lovász)"] > 0, "no sort in the traced Lovász steps")
+    deeplab_numbers["DeepLabV3+-R101"] = {**numbers, "lovasz_tail_ms": tail}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return {"DeepLabV3+-Xception": dlx_launches, "DeepLabV3+-R101": dlr_launches,
+            "DeepLabV3+-Xception inference": dl_infer_launches}, deeplab_numbers
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Drive segtpu_torch on one GPU")
     parser.add_argument("--seed", type=int, default=0,
@@ -1588,7 +1965,7 @@ def run(args, workdir):
             trainer, psp_config, recorder, workdir, card)
         resume["best"] = os.path.join(trainer.checkpoint_dir, "best_model")
 
-    trainer, psp_launches, (images, labels), (val_images, val_labels) = train_main_path(
+    trainer, psp_launches, (images, labels), (val_images, val_labels), _ = train_main_path(
         "PSPNet-R50", psp_config,
         {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card,
         recorder, after_train=checkpoints)
@@ -1681,7 +2058,7 @@ def run(args, workdir):
     torch.cuda.empty_cache()
 
     phase("main path: UperNet-R101")
-    trainer, uper_launches, (images, labels), _ = train_main_path(
+    trainer, uper_launches, (images, labels), _, _ = train_main_path(
         "UperNet-R101", smoke_config({"type": "UperNet", "args": {"backbone": "resnet101"}},
                                      os.path.join(workdir, "saved")),
         {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card,
@@ -1703,6 +2080,21 @@ def run(args, workdir):
     gc.collect()
     torch.cuda.empty_cache()
 
+    deeplab_launches, deeplab_numbers = deeplab_phases(workdir, args.seed, card, recorder)
+    print("deeplab: " + json.dumps(deeplab_numbers))
+
+    phase("losses on the card")
+    loss_numbers = losses_phase(card)
+    print("losses: " + json.dumps(loss_numbers))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("optimizers and freezes on the card")
+    reset_launches()
+    opt_numbers = optimizer_phase(workdir, card)
+    opt_launches = read_launches()
+    print("optimizers: " + json.dumps(opt_numbers) + f"; launches {opt_launches}")
+
     phase("data: CityScapes on disk")
     disk_launches, disk_numbers = disk_phase(workdir, args.seed, card, recorder)
     print("data: " + json.dumps(disk_numbers))
@@ -1714,7 +2106,10 @@ def run(args, workdir):
                  "are those of the flat_conv phase, 0 on every main path")
     paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
              "inference": infer_launches, "serving export": serve_launches,
-             "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches}
+             "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches,
+             **deeplab_launches,
+             "PSPNet-R50 optimizers and freezes (7 runs of 2 steps, 1 resumed step)":
+                 opt_launches}
     stem_main = stem_times[0]
     kernels = [{
         "name": "stem_conv_wgrad", "route": "cuda",

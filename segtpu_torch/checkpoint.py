@@ -84,15 +84,18 @@ def read_meta(path: str) -> Dict:
 def load_checkpoint(path: str, state) -> Dict:
     """Restore model, optimizer, update count and random generators into
     ``state`` in place; returns the checkpoint's meta. The tensors land on
-    the model's device whatever device they were saved from."""
+    the model's device whatever device they were saved from. They are read
+    on the CPU: the optimizer moves its state to each parameter's device
+    itself, and keeps the step counts of Adam-like optimizers on the CPU,
+    where torch makes them."""
     device = _device_of(state.model)
-    saved = _load_state(path, device)
+    saved = _load_state(path, torch.device("cpu"))
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
-    torch.set_rng_state(saved["rng"]["cpu"].cpu())
+    torch.set_rng_state(saved["rng"]["cpu"])
     if device.type == "cuda" and "cuda" in saved["rng"]:
-        torch.cuda.set_rng_state(saved["rng"]["cuda"].cpu(), device)
+        torch.cuda.set_rng_state(saved["rng"]["cuda"], device)
     return read_meta(path)
 
 

@@ -1,10 +1,18 @@
 """Train state and optimizer construction.
 
-Counterpart of ``segtpu/core/state.py``: SGD (momentum 0.9, coupled weight
-decay) in two parameter groups, the decoder at ``lr`` and the backbone at
-``lr/10``, under a per-iteration schedule. Before update t (counting from
-0) each group's lr is set to its schedule at t, which is how optax's
-``scale_by_learning_rate`` applies it in segtpu.
+Counterpart of ``segtpu/core/state.py``: torch-semantics SGD, Adam, AdamW,
+RMSprop (plain or centered) and Adagrad, in two parameter groups, the
+decoder at ``lr`` and the backbone at ``lr/10``, under a per-iteration
+schedule (Poly or OneCycle). Before update t (counting from 0) each group's
+lr is set to its schedule at t, which is how optax's
+``scale_by_learning_rate`` applies it in segtpu; under OneCycle, SGD's
+momentum is set the same way from the momentum schedule.
+
+segtpu re-derives these optimizers in optax with torch's semantics; here
+they are ``torch.optim``'s own, in torch's default form (the for-loop on
+the CPU, ``foreach`` on the card; never ``fused``). ``freeze_backbone``
+leaves the backbone out of the optimizer and stops its gradients: its
+parameters keep their bits and weight decay does not reach them.
 """
 
 from __future__ import annotations
@@ -15,6 +23,16 @@ import torch
 from torch import nn
 
 from segtpu_torch import schedules as sched_lib
+
+#: segtpu's ``_OPTIMIZERS``: each name's class and the config arguments
+#: segtpu's transform reads besides ``weight_decay`` (and SGD's and
+#: RMSprop's ``momentum``); others are dropped, as segtpu drops them
+OPTIMIZERS = {"SGD": (torch.optim.SGD, ()),
+              "Adam": (torch.optim.Adam, ("betas", "eps")),
+              "AdamW": (torch.optim.AdamW, ("betas", "eps")),
+              "RMSprop": (torch.optim.RMSprop, ("alpha", "eps", "centered")),
+              "Adagrad": (torch.optim.Adagrad,
+                          ("eps", "lr_decay", "initial_accumulator_value"))}
 
 
 def partition_labels(model: nn.Module) -> Dict[str, str]:
@@ -33,32 +51,64 @@ def make_optimizer(
     weight_decay: float = 1e-4,
     nesterov: bool = False,
     differential_lr: bool = True,
+    freeze_backbone: bool = False,
     scheduler_type: str = "Poly",
     num_epochs: int = 80,
     iters_per_epoch: int = 1000,
     scheduler_args: Optional[Dict] = None,
+    **opt_args,
 ):
-    """``(torch.optim.SGD, [schedule per param group])`` from the config's
-    "optimizer" and "lr_scheduler" fields. Group 0 is the decoder, group 1
-    (with ``differential_lr``) the backbone at 0.1x."""
-    if optimizer_type != "SGD":
-        raise NotImplementedError(
-            f"optimizer {optimizer_type!r} is not ported yet; SGD is (ROADMAP)")
-    sched = sched_lib.get_schedule(scheduler_type)(
-        lr, num_epochs, iters_per_epoch, **(scheduler_args or {}))
+    """``(optimizer, [lr schedule per group])`` from the config's
+    "optimizer" and "lr_scheduler" fields; ``opt_args`` (``betas``, ``eps``,
+    ``alpha``, ``centered``, ``lr_decay``, ``initial_accumulator_value``)
+    go to the ``torch.optim`` class.
+
+    Group 0 is the decoder; with ``differential_lr`` group 1 is the backbone
+    at 0.1x. With ``freeze_backbone`` the backbone has no group, but both
+    schedules are still returned for the log, as segtpu's are. SGD's
+    momentum defaults to 0.9 and RMSprop's to 0, as segtpu's. Under
+    OneCycle, an SGD optimizer carries the momentum schedule as
+    ``optimizer.momentum_schedule`` (None otherwise), which
+    :meth:`TrainState.apply_gradients` reads; the others ignore it, as
+    segtpu's do."""
+    if optimizer_type not in OPTIMIZERS:
+        raise ValueError(f"unsupported optimizer type {optimizer_type!r}; "
+                         f"supported: {sorted(OPTIMIZERS)}")
+    scheduler_args = dict(scheduler_args or {})
+    mom_sched = None
+    if scheduler_type == "OneCycle":
+        sched, mom_sched = sched_lib.one_cycle(lr, num_epochs, iters_per_epoch,
+                                               **scheduler_args)
+    else:
+        sched = sched_lib.get_schedule(scheduler_type)(
+            lr, num_epochs, iters_per_epoch, **scheduler_args)
+    cls, accepted = OPTIMIZERS[optimizer_type]
+    kwargs = {k: v for k, v in opt_args.items() if k in accepted}
+    kwargs["weight_decay"] = weight_decay
+    if optimizer_type == "SGD":
+        kwargs.update(momentum=0.9 if momentum is None else momentum, nesterov=nesterov)
+        if mom_sched is not None:
+            kwargs["momentum"] = mom_sched(0)
+    else:
+        if optimizer_type == "RMSprop":
+            kwargs["momentum"] = 0.0 if momentum is None else momentum
+        mom_sched = None
+
     labels = partition_labels(model)
     named = list(model.named_parameters())
     decoder = [p for n, p in named if labels[n] == "decoder"]
     backbone = [p for n, p in named if labels[n] == "backbone"]
-    if differential_lr:
+    schedules = [sched, lambda s: sched(s) * 0.1] if differential_lr else [sched]
+    if freeze_backbone:
+        for p in backbone:
+            p.requires_grad_(False)
+        groups = [{"params": decoder}]
+    elif differential_lr:
         groups = [{"params": decoder}, {"params": backbone}]
-        schedules = [sched, lambda s: sched(s) * 0.1]
     else:
         groups = [{"params": decoder + backbone}]
-        schedules = [sched]
-    opt = torch.optim.SGD(groups, lr=sched(0),
-                          momentum=0.9 if momentum is None else momentum,
-                          weight_decay=weight_decay, nesterov=nesterov)
+    opt = cls(groups, lr=sched(0), **kwargs)
+    opt.momentum_schedule = mom_sched
     return opt, schedules
 
 
@@ -73,13 +123,18 @@ class TrainState:
         self.step = 0
 
     def apply_gradients(self) -> None:
-        """One optimizer update at the schedules' rates for this step."""
+        """One optimizer update at the schedules' rates for this step, and
+        at the momentum schedule's momentum where the optimizer has one."""
+        mom_sched = getattr(self.optimizer, "momentum_schedule", None)
         for group, sched in zip(self.optimizer.param_groups, self.schedules):
             group["lr"] = sched(self.step)
+            if mom_sched is not None:
+                group["momentum"] = mom_sched(self.step)
         self.optimizer.step()
         self.step += 1
 
     def current_lrs(self) -> List[float]:
-        """The per-group rates of the last update applied."""
+        """The per-group rates of the last update applied (both groups'
+        with ``differential_lr``, a frozen backbone's included)."""
         step = max(self.step - 1, 0)
         return [s(step) for s in self.schedules]

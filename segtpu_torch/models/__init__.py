@@ -1,15 +1,17 @@
-"""Model registry. Counterpart of ``segtpu/models/__init__.py``; PSPNet and
-UperNet are the models ported so far."""
+"""Model registry. Counterpart of ``segtpu/models/__init__.py``; PSPNet,
+UperNet and DeepLab (DeepLabV3+, Xception or ResNet) are ported, the other
+names of segtpu's zoo are not yet (ROADMAP)."""
 
 from __future__ import annotations
 
 import torch
 
 from segtpu_torch import resolve_device
+from segtpu_torch.models.deeplabv3_plus import DeepLab
 from segtpu_torch.models.pspnet import PSPNet
 from segtpu_torch.models.upernet import UperNet
 
-MODELS = {"PSPNet": PSPNet, "UperNet": UperNet}
+MODELS = {"PSPNet": PSPNet, "UperNet": UperNet, "DeepLab": DeepLab}
 
 
 def get_model(name: str, *, device="cuda", seed: int = 0, **kwargs):

@@ -20,7 +20,7 @@ from torch import nn
 
 from segtpu_torch.backbones.resnet import ResNetFeatures, run_features
 from segtpu_torch.nn.blocks import PSPModule
-from segtpu_torch.nn.layers import (batch_norm, conv2d, init_parameters,
+from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
                                     kaiming_normal_init, zeros_init)
 from segtpu_torch.ops.resize import resize_bilinear
 
@@ -40,7 +40,7 @@ class _AuxBranch(nn.Sequential):
             _classifier(mid_ch, num_classes))
 
 
-class PSPNet(nn.Module):
+class PSPNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("initial", "layer1", "layer2", "layer3", "layer4")
 
@@ -50,11 +50,11 @@ class PSPNet(nn.Module):
                  freeze_backbone: bool = False, pallas_stem_wgrad: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, on in (("pretrained", pretrained), ("freeze_bn", freeze_bn),
-                         ("freeze_backbone", freeze_backbone)):
-            if on:
-                raise NotImplementedError(
-                    f"PSPNet({name}=True) is not ported yet (ROADMAP)")
+        if pretrained:
+            raise NotImplementedError(
+                "PSPNet(pretrained=True) is not ported yet (ROADMAP)")
+        # freeze_backbone is the optimizer's (core/state.py), as in segtpu
+        self.freeze_bn = freeze_bn
         feats = ResNetFeatures(arch=backbone, style="encoding",
                                in_channels=in_channels,
                                pallas_stem_wgrad=pallas_stem_wgrad)

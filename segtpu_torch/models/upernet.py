@@ -24,11 +24,12 @@ from torch import nn
 
 from segtpu_torch.backbones.resnet import ResNetFeatures
 from segtpu_torch.nn.blocks import FPNFuse, PSPModule
-from segtpu_torch.nn.layers import conv2d, init_parameters, kaiming_normal_init
+from segtpu_torch.nn.layers import (FreezableBN, conv2d, init_parameters,
+                                    kaiming_normal_init)
 from segtpu_torch.ops.resize import resize_bilinear
 
 
-class UperNet(nn.Module):
+class UperNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("backbone",)
 
@@ -39,11 +40,11 @@ class UperNet(nn.Module):
                  output_stride: int = 16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, on in (("pretrained", pretrained), ("freeze_bn", freeze_bn),
-                         ("freeze_backbone", freeze_backbone)):
-            if on:
-                raise NotImplementedError(
-                    f"UperNet({name}=True) is not ported yet (ROADMAP)")
+        if pretrained:
+            raise NotImplementedError(
+                "UperNet(pretrained=True) is not ported yet (ROADMAP)")
+        # freeze_backbone is the optimizer's (core/state.py), as in segtpu
+        self.freeze_bn = freeze_bn
         # use_aux is accepted as segtpu accepts it, and has no effect
         self.backbone = ResNetFeatures(arch=backbone, style="torchvision",
                                        output_stride=output_stride,

@@ -1,5 +1,6 @@
-"""Decoder blocks. Counterpart of ``segtpu/nn/blocks.py``: the PSP pyramid
-(PSPNet, UperNet) and UperNet's FPN fusion head."""
+"""Decoder blocks. Counterpart of ``segtpu/nn/blocks.py``: the separable
+conv (Xception), the PSP pyramid (PSPNet, UperNet), ASPP (DeepLabV3+) and
+UperNet's FPN fusion head."""
 
 from __future__ import annotations
 
@@ -8,9 +9,31 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from segtpu_torch.nn.layers import ConvBNAct, batch_norm, conv2d, kaiming_normal_init
+from segtpu_torch.nn.layers import (ConvBNAct, batch_norm, conv2d, kaiming_normal_init,
+                                    torch_conv_kernel_init)
 from segtpu_torch.ops.pooling import adaptive_avg_pool_multi
 from segtpu_torch.ops.resize import resize_bilinear
+
+
+class SeparableConv(nn.Module):
+    """Depthwise k x k conv, BN, then pointwise 1x1 conv: the Xception
+    building block. The padding is ``d if d > k//2 else k//2``, and the BN
+    sits between the two convs, as in the original ``SeparableConv2d``,
+    whose keys these are (``conv1``, ``bn``, ``pointwise``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, bias: bool = False,
+                 weight_init=torch_conv_kernel_init):
+        super().__init__()
+        k, d = kernel_size, dilation
+        padding = d if d > k // 2 else k // 2
+        self.conv1 = conv2d(in_ch, in_ch, k, stride, padding, d, bias=bias,
+                            weight_init=weight_init, groups=in_ch)
+        self.bn = batch_norm(in_ch)
+        self.pointwise = conv2d(in_ch, out_ch, 1, bias=bias, weight_init=weight_init)
+
+    def forward(self, x):
+        return self.pointwise(self.bn(self.conv1(x)))
 
 
 class PSPModule(nn.Module):
@@ -51,6 +74,55 @@ class PSPModule(nn.Module):
             pyramids.append(resize_bilinear(stage(pooled), size,
                                             align_corners=True))
         return self.bottleneck(torch.cat(pyramids, dim=1))
+
+
+class ASPP(nn.Module):
+    """Atrous Spatial Pyramid Pooling.
+
+    A 1x1 branch and ``num_branches - 1`` dilated 3x3 branches (each
+    conv + BN + ReLU), an image-pool branch (the spatial mean in at least
+    fp32, 1x1 conv,
+    BN, ReLU, then resized back with ``align_corners=True``), concat, and a
+    1x1 projection + BN + ReLU + dropout(0.5). Dilations (1, 6, 12, 18) at
+    output stride 16 and (1, 12, 24, 36) at 8 for 4 branches; (1, 6, 12, 18,
+    24, 36)[:num_branches] otherwise.
+
+    Keys follow the original ``ASSP``: ``aspp{i}.{0,1}``, ``avg_pool.{1,2}``
+    (index 0 held its adaptive pool; here the mean is taken in ``forward``),
+    ``conv1`` and ``bn1``. The image pool's BN normalizes a 1x1 map, so in
+    train mode it needs a batch of 2 or more.
+    """
+
+    def __init__(self, in_ch: int, output_stride: int = 16, num_branches: int = 4,
+                 features: int = 256):
+        super().__init__()
+        if num_branches == 4:
+            dilations = [1, 6, 12, 18] if output_stride == 16 else [1, 12, 24, 36]
+        else:
+            dilations = [1, 6, 12, 18, 24, 36][:num_branches]
+        self.num_branches = len(dilations)
+        for i, d in enumerate(dilations):
+            k = 1 if i == 0 else 3
+            setattr(self, f"aspp{i + 1}", ConvBNAct(
+                in_ch, features, k, padding=0 if k == 1 else d, dilation=d,
+                weight_init=kaiming_normal_init))
+        self.avg_pool = nn.Sequential(
+            nn.Identity(), conv2d(in_ch, features, 1, weight_init=kaiming_normal_init),
+            batch_norm(features), nn.ReLU(inplace=True))
+        self.conv1 = conv2d(features * (self.num_branches + 1), features, 1,
+                            weight_init=kaiming_normal_init)
+        self.bn1 = batch_norm(features)
+        self.relu = nn.ReLU(inplace=True)
+        self.dropout = nn.Dropout(0.5)
+
+    def forward(self, x):
+        outs = [getattr(self, f"aspp{i + 1}")(x) for i in range(self.num_branches)]
+        img = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+            dim=(2, 3), keepdim=True).to(x.dtype)
+        img = self.avg_pool[1:](img)
+        outs.append(resize_bilinear(img, x.shape[-2:], align_corners=True))
+        y = self.relu(self.bn1(self.conv1(torch.cat(outs, dim=1))))
+        return self.dropout(y)
 
 
 class FPNFuse(nn.Module):

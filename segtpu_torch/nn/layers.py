@@ -50,11 +50,12 @@ def zeros_init(bias, fan_in, generator=None):
 def conv2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
            padding: int = 0, dilation: int = 1, bias: bool = False,
            weight_init: Init = torch_conv_kernel_init,
-           bias_init=torch_conv_bias_init) -> nn.Conv2d:
+           bias_init=torch_conv_bias_init, groups: int = 1) -> nn.Conv2d:
     """``nn.Conv2d`` that carries its initializers for
-    :func:`init_parameters`."""
+    :func:`init_parameters`. ``groups=in_ch`` makes a depthwise conv; the
+    initializers' fan-in is then ``k*k*in_ch/groups``, as segtpu's."""
     conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding, dilation,
-                     bias=bias)
+                     groups=groups, bias=bias)
     conv.weight_init = weight_init
     conv.bias_init = bias_init
     return conv
@@ -62,6 +63,24 @@ def conv2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
 
 def batch_norm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+class FreezableBN(nn.Module):
+    """Base of the models that take ``freeze_bn``: with ``self.freeze_bn``
+    set, every BatchNorm stays in eval mode through ``train()`` (the train
+    step calls it every step), so it normalizes with its running statistics
+    and leaves them untouched; its scale and bias still train, and dropout
+    stays on, as in the original's ``freeze_bn()``."""
+
+    freeze_bn = False
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
 
 @torch.no_grad()

@@ -106,6 +106,8 @@ class Trainer:
             model,
             optimizer_type=opt_cfg.get("type", "SGD"),
             differential_lr=opt_cfg.get("differential_lr", True),
+            freeze_backbone=config.get("arch", {}).get("args", {}).get(
+                "freeze_backbone", False),
             scheduler_type=sched_cfg.get("type", "Poly"),
             scheduler_args=sched_cfg.get("args", {}),
             num_epochs=self.epochs,

@@ -48,3 +48,31 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+#: the losses, optimizer and DeepLab slice's modules, and what each must
+#: define, imported alone
+SLICE_MODULES = {
+    "segtpu_torch.losses": ("LOSSES", "lovasz_softmax", "lovasz_softmax_binned",
+                            "lovasz_hinge", "binary_xloss", "get_weights"),
+    "segtpu_torch.ops.lovasz_hist": ("histograms_compare", "histograms_onehot"),
+    "segtpu_torch.backbones.xception": ("XceptionBlock", "XceptionFeatures"),
+    "segtpu_torch.models.deeplabv3_plus": ("DeepLab", "DeepLabDecoder"),
+    "segtpu_torch.utils.weight_convert": ("deeplab_state_dict_from_segtpu",),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_MODULES))
+def test_slice_module_alone_loads_no_jax(module):
+    path = REPO.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in SOURCES  # so test_no_forbidden_imports reads every line of it
+    names = SLICE_MODULES[module]
+    code = (f"import sys, {module} as m\n"
+            f"missing = [n for n in {names!r} if not hasattr(m, n)]\n"
+            "assert not missing, missing\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN + NOT_AT_MODULE_SCOPE!r}]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
