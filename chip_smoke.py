@@ -90,19 +90,32 @@ Phases, each announced on its own line:
 12. DeepLabV3+-R101 main path: the same at output stride 16 with the exact
     LovaszSoftmax and SGD under Poly, with the traced ms of the Lovász sort,
     its cumsums and its gathers per step;
-13. losses on the card: every name of the port's ``LOSSES``, plus
+13. the zoo paths at segtpu's defaults, full width and depth, each through
+    ``segtpu_torch.train.main`` (19 classes, 769x769, batch 8, uint8
+    transport, bf16 autocast, CE, two-group SGD under Poly) for 2 steps, then
+    timed and traced as in phase 6, with no hand-written kernel (every count
+    0): DeepLab_DUC_HDC-R101 (HDC "rf", output stride 8; with a validation
+    pass, then the inference CLI, sliding bf16, on one 1024x2048 frame with
+    its best_model), UNet, UNetResnet-R50, SegNet and SegResNet; the trace
+    records op shapes and arguments, so that transposed convs, the max
+    unpools and the pixel shuffles (forward and backward) form categories of
+    their own. On SegResNet, two eval forwards of one batch give the same
+    bits, and the card's ``max_unpool_flat`` on a bf16 step's own decoder
+    tensor and stem-pool indices equals the CPU's bit for bit, forward and
+    backward, with the indices' repeats counted;
+14. losses on the card: every name of the port's ``LOSSES``, plus
     ``lovasz_hinge`` and ``binary_xloss``, on bf16 logits 8x19x769x769 with
     255-ignored labels: forward + backward ms and peak memory at full size;
     value and logit gradient at a LOSS_CROP crop of the same draw, in
     float64 and float32 on the card, against float64 on the CPU;
-14. optimizers and freezes on the card: PSPNet-R50 with the stem kernel at
+15. optimizers and freezes on the card: PSPNet-R50 with the stem kernel at
     769x769, batch 8, 2 steps each of Adam, AdamW, centered RMSprop, Adagrad
     with lr_decay, SGD under OneCycle, freeze_backbone and freeze_bn from
     one set of weights: losses finite, the stem kernel's launches per step,
     the frozen backbone's parameters and the frozen running statistics bit
     for bit; AdamW under OneCycle saved after its first step and resumed,
     its resumed loss equal to the uninterrupted run's;
-15. data: CityScapes on disk: a seeded CityScapes fine tree (32 train and
+16. data: CityScapes on disk: a seeded CityScapes fine tree (32 train and
     8 val 1024x2048 frames, raw label ids 0-33) written to the work
     directory; the port's CityScapes loader alone (base 2048, 769 crops,
     scale, rotate, flip and blur, batch 8, 8 workers) in samples/s with
@@ -116,7 +129,7 @@ Phases, each announced on its own line:
     loader; the repo's ``config.json`` (only data_dir, save_dir and epochs
     set) trained for 5 steps and its validation on a view of the tree; the
     inference CLI, sliding bf16, on one frame with the 769 run's best_model;
-16. the ``kernels`` JSON line (each kernel's launches on every path above),
+17. the ``kernels`` JSON line (each kernel's launches on every path above),
     then the card's name and power limit, then ``{"ok": true, "device":
     {...}}`` as the last line.
 
@@ -304,14 +317,15 @@ def check_flat(label, x, dy, wk, k, p, d):
     return abs_w, abs_d
 
 
-def smoke_config(arch, save_dir, save_period=10, save_per_iters=0):
+def smoke_config(arch, save_dir, save_period=10, save_per_iters=0, steps=STEPS,
+                 val=True):
     synthetic = {"num_classes": CLASSES, "batch_size": BATCH, "crop_size": CROP,
                  "num_workers": 8, "device_normalize": True}
     return {
         "name": "ChipSmoke", "seed": 0,
         "arch": arch,
         "train_loader": {"type": "Synthetic", "args": {
-            **synthetic, "size": BATCH * STEPS, "image_hw": 800,
+            **synthetic, "size": BATCH * steps, "image_hw": 800,
             "flip": True, "shuffle": True}},
         "val_loader": {"type": "Synthetic", "args": {
             **synthetic, "size": BATCH, "image_hw": CROP, "val": True,
@@ -320,7 +334,7 @@ def smoke_config(arch, save_dir, save_period=10, save_per_iters=0):
                       "args": {"lr": 0.01, "weight_decay": 1e-4, "momentum": 0.9}},
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
-        "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
+        "trainer": {"epochs": 1, "log_per_iter": 1, "val": val,
                     "monitor": "max Mean_IoU", "compute_dtype": "bfloat16",
                     "save_dir": save_dir, "save_period": save_period,
                     "save_per_iters": save_per_iters},
@@ -335,6 +349,9 @@ def device_us(evt) -> float:
 
 
 DEPTHWISE = "depthwise conv (cuDNN)"
+TRANSPOSED = "transposed conv (cuDNN)"
+UNPOOL = "max unpool"
+PIXEL_SHUFFLE = "pixel shuffle"
 
 
 def _depthwise_op(evt) -> bool:
@@ -350,6 +367,34 @@ def _depthwise_op(evt) -> bool:
     return (len(x) == 4 and len(w) == 4 and w[1] == 1 and w[0] == x[1] > 1)
 
 
+def _transposed_op(evt) -> bool:
+    """A transposed convolution: ``aten::conv_transpose2d``, or a
+    convolution backward whose recorded ``transposed`` argument is true."""
+    if evt.name == "aten::conv_transpose2d":
+        return True
+    args = getattr(evt, "concrete_inputs", None) or []
+    return evt.name == "aten::convolution_backward" and len(args) > 7 and args[7] is True
+
+
+def _unpool_op(evt) -> bool:
+    """SegNet's ``max_unpool2d`` and SegResNet's ``max_unpool_flat``,
+    forward and backward."""
+    return (evt.name in ("aten::max_unpool2d", "_MaxUnpoolFlat")
+            or evt.name.endswith(("MaxUnpool2DBackward0", "_MaxUnpoolFlatBackward")))
+
+
+def _pixel_shuffle_op(evt) -> bool:
+    return evt.name == "aten::pixel_shuffle" or evt.name.endswith("PixelShuffleBackward0")
+
+
+#: traced ops whose kernels form a category of their own (op shapes and
+#: arguments recorded in the trace)
+DEPTHWISE_OP = (_depthwise_op, DEPTHWISE)
+TRANSPOSED_OP = (_transposed_op, TRANSPOSED)
+UNPOOL_OP = (_unpool_op, UNPOOL)
+PIXEL_SHUFFLE_OP = (_pixel_shuffle_op, PIXEL_SHUFFLE)
+
+
 def _kernels_under(evt):
     """(name, device us) of every kernel launched by ``evt`` or its CPU
     children."""
@@ -359,17 +404,39 @@ def _kernels_under(evt):
     return out
 
 
-def profile_steps(step, steps, card, depthwise=False):
+def _op_kernels(prof, ops):
+    """{category: {kernel name: device us}} of the kernels launched under
+    the outermost traced op that each ``(predicate, category)`` of ``ops``
+    matches, the first match winning."""
+    out = {cat: {} for _, cat in ops}
+
+    def walk(evt):
+        for pred, cat in ops:
+            if pred(evt):
+                for name, us in _kernels_under(evt):
+                    out[cat][name] = out[cat].get(name, 0.0) + us
+                return
+        for child in evt.cpu_children:
+            walk(child)
+
+    for evt in prof.events():
+        if evt.cpu_parent is None:
+            walk(evt)
+    return out
+
+
+def profile_steps(step, steps, card, ops=()):
     """Trace ``steps`` calls of ``step``; print the wall and device time per
     step, the idle share and the device time by kernel category. With
-    ``depthwise`` the trace records op shapes, and the kernels launched by
-    depthwise convolutions (forward and backward) form a category of their
-    own; returns the device ms per step by category."""
+    ``ops``, (predicate, category) pairs, the trace records op shapes and
+    arguments, and the kernels launched under each matching op (forward and
+    backward) form a category of their own; returns the device ms per step
+    by category."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=depthwise) as prof:
+                 record_shapes=bool(ops)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -385,23 +452,21 @@ def profile_steps(step, steps, card, depthwise=False):
     print(f"traced: {steps} steps, wall {wall_ms:.1f} ms/step, device busy "
           f"{busy_ms:.1f} ms/step, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} "
           f"[{card}]")
-    # kernel name -> device us spent under depthwise convolution ops
-    dw = {}
-    if depthwise:
-        for evt in prof.events():
-            if _depthwise_op(evt):
-                for name, us in _kernels_under(evt):
-                    dw[name] = dw.get(name, 0.0) + us
+    by_op = _op_kernels(prof, ops) if ops else {}
+    # kernel name -> device us attributed to an op category
+    taken = {}
+    for per_kernel in by_op.values():
+        for name, us in per_kernel.items():
+            taken[name] = taken.get(name, 0.0) + us
     sums = {}
     for e in kernels:
         cat = next((c for key, c in CATEGORIES if key in e.key), "other")
-        us = device_us(e) - min(dw.get(e.key, 0.0), device_us(e))
+        us = device_us(e) - min(taken.get(e.key, 0.0), device_us(e))
         sums[cat] = sums.get(cat, 0.0) + us / 1e3 / steps
-    if depthwise:
-        sums[DEPTHWISE] = sum(dw.values()) / 1e3 / steps
-        print(f"  depthwise convs (op shapes recorded in this trace), their "
-              f"kernels (ms/step):")
-        for name, us in sorted(dw.items(), key=lambda kv: -kv[1]):
+    for cat, per_kernel in by_op.items():
+        sums[cat] = sum(per_kernel.values()) / 1e3 / steps
+        print(f"  {cat} (op shapes recorded in this trace), its kernels (ms/step):")
+        for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {us / 1e3 / steps:8.3f}  {name[:100]}")
     for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms/step {ms / busy_ms:6.3f}  {cat}")
@@ -435,19 +500,23 @@ def read_launches():
 
 
 def train_main_path(label, config, want_launches, card, recorder, after_train=None,
-                    depthwise=False):
+                    ops=()):
     """Train ``config`` through ``segtpu_torch.train.main`` with the launch
     counts set to 0 just before and read just after, its steps recorded;
-    check the epoch log; call ``after_train(trainer)``; check an eval step;
-    time and trace the train step (outside the recorded run). Returns
-    (trainer, launches, one device-resident train batch, one val batch, the
-    timed step's numbers with the traced device ms by category)."""
+    check the epoch log (and its validation, where the config runs one);
+    call ``after_train(trainer)``; check an eval step; time and trace the
+    train step (outside the recorded run; ``ops`` as in
+    ``profile_steps``). Returns (trainer, launches, one device-resident
+    train batch, one val batch, the timed step's numbers with the traced
+    device ms by category)."""
     import torch
 
     from segtpu_torch import train as train_cli
     from segtpu_torch.data import DevicePrefetcher
 
     dev = torch.device("cuda")
+    steps = config["train_loader"]["args"]["size"] // BATCH
+    val = config["trainer"]["val"]
     recorder.start()
     reset_launches()
     t0 = time.perf_counter()
@@ -456,20 +525,26 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
     wall = time.perf_counter() - t0
     launches = read_launches()
     recorder.stop()
-    print(f"trainer: {trainer.state.step} steps + validation in {wall:.1f} s "
-          f"(model build and data included); launches {launches}")
-    check(trainer.state.step == STEPS, f"{trainer.state.step} steps, want {STEPS}")
+    print(f"trainer: {trainer.state.step} steps{' + validation' if val else ''} in "
+          f"{wall:.1f} s (model build and data included); launches {launches}")
+    check(trainer.state.step == steps, f"{trainer.state.step} steps, want {steps}")
     check(launches == want_launches,
-          f"{label} launched {launches} in {STEPS} steps, want {want_launches}")
+          f"{label} launched {launches} in {steps} steps, want {want_launches}")
     log = trainer.history[-1]
-    print(f"epoch log: loss {log['loss']}, val_loss {log['val_loss']}, "
-          f"Mean_IoU {log['Mean_IoU']}, Pixel_Accuracy {log['Pixel_Accuracy']}")
-    check(math.isfinite(log["loss"]) and math.isfinite(log["val_loss"]),
-          f"non-finite loss {log}")
+    check(math.isfinite(log["loss"]), f"non-finite loss {log}")
+    check(all(math.isfinite(r["loss"]) for r in recorder.steps),
+          f"non-finite step losses {recorder.steps}")
+    if val:
+        print(f"epoch log: loss {log['loss']}, val_loss {log['val_loss']}, "
+              f"Mean_IoU {log['Mean_IoU']}, Pixel_Accuracy {log['Pixel_Accuracy']}")
+        check(math.isfinite(log["val_loss"]), f"non-finite val loss {log}")
+    else:
+        print(f"epoch log: loss {log['loss']}, Mean_IoU {log['Mean_IoU']}, "
+              f"Pixel_Accuracy {log['Pixel_Accuracy']} (train batches; no validation)")
     check(0.0 <= log["Mean_IoU"] <= 1.0 and 0.0 <= log["Pixel_Accuracy"] <= 1.0,
           f"metrics out of range {log}")
     check([r["stem_launches"] for r in recorder.steps]
-          == [want_launches["stem_conv_wgrad"] // STEPS] * STEPS,
+          == [want_launches["stem_conv_wgrad"] // steps] * steps,
           f"stem kernel launches per step {recorder.steps}")
     if after_train is not None:
         after_train(trainer)
@@ -502,7 +577,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     numbers["device_ms_by_category"] = profile_steps(
         lambda: trainer.train_step(trainer.state, images, labels), TRACED_STEPS, card,
-        depthwise=depthwise)
+        ops=ops)
     return trainer, launches, (images, labels), (val_images, val_labels), numbers
 
 
@@ -1643,27 +1718,28 @@ def optimizer_phase(workdir, card):
     return numbers
 
 
-def deeplab_inference(best, workdir, seed, card):
-    """The inference CLI, sliding bf16, on one seeded 1024x2048 frame with the
-    DeepLab run's best_model; returns (launches, seconds)."""
+def frame_inference(label, best, workdir, seed, card):
+    """The inference CLI, sliding bf16, on one seeded 1024x2048 frame with
+    the ``label`` run's best_model; returns (launches, seconds)."""
     import numpy as np
     from PIL import Image
 
     from segtpu_torch import inference as inference_cli
 
-    images_dir = os.path.join(workdir, "deeplab_frame")
+    tag = "".join(c if c.isalnum() else "_" for c in label)
+    images_dir = os.path.join(workdir, f"frame_{tag}")
     os.makedirs(images_dir)
     Image.fromarray(block_frame(np.random.default_rng(seed + 7))).save(
         os.path.join(images_dir, "frame.png"))
     reset_launches()
     result = inference_cli.main([
         "--model", best, "--images", images_dir, "--output",
-        os.path.join(workdir, "deeplab_out"), "--extension", "png", "--mode", "sliding",
+        os.path.join(workdir, f"out_{tag}"), "--extension", "png", "--mode", "sliding",
         "--dtype", "bfloat16"])
     launches = read_launches()
     with Image.open(result["written"][0]) as written:
         classes = np.asarray(written)
-    print(f"inference CLI, sliding bf16, DeepLabV3+-Xception best_model: "
+    print(f"inference CLI, sliding bf16, {label} best_model: "
           f"{result['seconds'][0]:.2f} s for one {FRAME[0]}x{FRAME[1]} frame, "
           f"{len(np.unique(classes))} classes in its map; launches {launches} [{card}]")
     check(classes.shape == FRAME and classes.max() < CLASSES, "the written class map")
@@ -1685,7 +1761,7 @@ def deeplab_phases(workdir, seed, card, recorder):
             {"type": "AdamW", "differential_lr": True,
              "args": {"lr": 1e-3, "weight_decay": 1e-2}},
             {"type": "OneCycle", "args": {}}),
-        no_kernel, card, recorder, depthwise=True)
+        no_kernel, card, recorder, ops=[DEPTHWISE_OP])
     check(numbers["device_ms_by_category"].get(DEPTHWISE, 0.0) > 0,
           "no device time attributed to the depthwise convs")
     deeplab_numbers = {"DeepLabV3+-Xception": numbers}
@@ -1695,8 +1771,8 @@ def deeplab_phases(workdir, seed, card, recorder):
     torch.cuda.empty_cache()
 
     phase("inference: DeepLabV3+-Xception")
-    dl_infer_launches, deeplab_numbers["inference_s"] = deeplab_inference(
-        dlx_best, workdir, seed, card)
+    dl_infer_launches, deeplab_numbers["inference_s"] = frame_inference(
+        "DeepLabV3+-Xception", dlx_best, workdir, seed, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1722,6 +1798,115 @@ def deeplab_phases(workdir, seed, card, recorder):
 
     return {"DeepLabV3+-Xception": dlx_launches, "DeepLabV3+-R101": dlr_launches,
             "DeepLabV3+-Xception inference": dl_infer_launches}, deeplab_numbers
+
+
+# the zoo paths at segtpu's defaults (full width and depth): (label, arch,
+# whether the run validates and keeps a best_model, the traced ops that
+# form categories of their own)
+ZOO_PATHS = [
+    ("DeepLab_DUC_HDC-R101", {"type": "DeepLab_DUC_HDC",
+                              "args": {"backbone": "resnet101", "output_stride": 8}},
+     True, [PIXEL_SHUFFLE_OP]),
+    ("UNet", {"type": "UNet", "args": {}}, False, [TRANSPOSED_OP]),
+    ("UNetResnet-R50", {"type": "UNetResnet", "args": {"backbone": "resnet50"}}, False,
+     [TRANSPOSED_OP]),
+    ("SegNet", {"type": "SegNet", "args": {}}, False, [UNPOOL_OP]),
+    ("SegResNet", {"type": "SegResNet", "args": {}}, False, [TRANSPOSED_OP, UNPOOL_OP]),
+]
+ZOO_STEPS = 2
+
+
+def segresnet_checks(trainer, batch, val_batch, card):
+    """SegResNet on the card: two eval forwards of one val batch give the
+    same bits; the card's ``max_unpool_flat`` on a bf16 train step's own
+    decoder tensor and stem-pool indices equals the CPU's bit for bit,
+    forward and backward (a seeded cotangent); the indices' repeats are
+    counted. Returns the numbers."""
+    import torch
+
+    from segtpu_torch.core.steps import prep_images
+    from segtpu_torch.models import segnet
+    from segtpu_torch.ops.pooling import max_unpool_flat
+
+    model = trainer.model
+    x = prep_images(val_batch[0], trainer.norm_stats, torch.bfloat16)
+    model.eval()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        first, second = model(x)["out"], model(x)["out"]
+    same_eval = torch.equal(first, second)
+    print(f"SegResNet: two eval forwards of one val batch give the same bits: {same_eval}")
+    check(same_eval, "two SegResNet eval forwards of one batch differ")
+    del first, second
+
+    seen = {}
+
+    def keep_unpool_inputs(y, idx, output_hw):
+        seen.update(y=y.detach().clone(), idx=idx.clone(), hw=tuple(output_hw))
+        return max_unpool_flat(y, idx, output_hw)
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    segnet.max_unpool_flat = keep_unpool_inputs
+    try:
+        step_backward(trainer, model, state, *batch, torch.bfloat16)
+    finally:
+        segnet.max_unpool_flat = max_unpool_flat
+    model.zero_grad(set_to_none=True)
+    y, idx, hw = seen["y"], seen["idx"], seen["hw"]
+    g = torch.randn((*y.shape[:2], *hw), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0)).to(y.dtype)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        yd = y.to(dev).detach().requires_grad_()
+        out = max_unpool_flat(yd, idx.to(dev), hw)
+        out.backward(g.to(dev))
+        outs.append((out.detach().cpu(), yd.grad.cpu()))
+    same_fwd = torch.equal(outs[0][0], outs[1][0])
+    same_bwd = torch.equal(outs[0][1], outs[1][1])
+    repeats = int((idx.flatten(2).sort(dim=2).values.diff(dim=2) == 0).sum())
+    print(f"SegResNet max_unpool_flat on a bf16 step's own decoder tensor "
+          f"{tuple(y.shape)} {y.dtype} and stem-pool indices into {hw}: {repeats} "
+          f"repeated indices of {idx.numel()}; the card's forward and backward equal "
+          f"the CPU's bit for bit: {same_fwd}, {same_bwd} [{card}]")
+    check(repeats > 0, "the step's stem-pool indices hold no repeat")
+    check(same_fwd and same_bwd, "the card's max_unpool_flat is not the CPU's")
+    del state, seen, y, idx, g, outs
+    return {"eval_forwards_equal": same_eval, "unpool_repeated_indices": repeats,
+            "unpool_card_equals_cpu": same_fwd and same_bwd}
+
+
+def zoo_phases(workdir, seed, card, recorder):
+    """The ZOO_PATHS through ``segtpu_torch.train.main`` (19 classes, 769x769,
+    batch 8, uint8 transport, bf16, CE, two-group SGD under Poly), ZOO_STEPS
+    steps each (DeepLab_DUC_HDC with a validation pass), then timed and
+    traced as in phase 6; no hand-written kernel (every count 0). SegResNet's
+    own checks (``segresnet_checks``) and the inference CLI on
+    DeepLab_DUC_HDC's best_model. Returns (launches by path, numbers)."""
+    import torch
+
+    no_kernel = {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}
+    launches, numbers = {}, {}
+    for label, arch, val, ops in ZOO_PATHS:
+        phase(f"main path: {label}")
+        config = smoke_config(arch, os.path.join(workdir, "saved"),
+                              save_period=1 if val else 10, steps=ZOO_STEPS, val=val)
+        trainer, launches[label], batch, val_batch, numbers[label] = train_main_path(
+            label, config, no_kernel, card, recorder, ops=ops)
+        cats = numbers[label]["device_ms_by_category"]
+        for _, cat in ops:
+            check(cats.get(cat, 0.0) > 0, f"no device time attributed to {cat} on {label}")
+        if label == "SegResNet":
+            numbers[label].update(segresnet_checks(trainer, batch, val_batch, card))
+        best = os.path.join(trainer.checkpoint_dir, "best_model") if val else None
+        del trainer, batch, val_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if best is not None:
+            phase(f"inference: {label}")
+            launches[f"{label} inference"], numbers[label]["inference_s"] = \
+                frame_inference(label, best, workdir, seed, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches, numbers
 
 
 def main(argv=None):
@@ -2083,6 +2268,9 @@ def run(args, workdir):
     deeplab_launches, deeplab_numbers = deeplab_phases(workdir, args.seed, card, recorder)
     print("deeplab: " + json.dumps(deeplab_numbers))
 
+    zoo_launches, zoo_numbers = zoo_phases(workdir, args.seed, card, recorder)
+    print("zoo: " + json.dumps(zoo_numbers))
+
     phase("losses on the card")
     loss_numbers = losses_phase(card)
     print("losses: " + json.dumps(loss_numbers))
@@ -2107,7 +2295,7 @@ def run(args, workdir):
     paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
              "inference": infer_launches, "serving export": serve_launches,
              "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches,
-             **deeplab_launches,
+             **deeplab_launches, **zoo_launches,
              "PSPNet-R50 optimizers and freezes (7 runs of 2 steps, 1 resumed step)":
                  opt_launches}
     stem_main = stem_times[0]

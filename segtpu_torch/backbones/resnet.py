@@ -7,7 +7,8 @@ plans. The dilation plan is computed up front by :func:`_layer_plan`.
 
 Module names follow the original torch repo (``initial``, ``layerX.{i}.
 conv1/bn1/.../downsample.{0,1}``), so its state dicts load as they are.
-``remat_blocks`` and ``s2d_stem`` are not ported yet (ROADMAP).
+``multi_grid``, ``remat_blocks`` and ``s2d_stem`` are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -149,30 +150,38 @@ class ResNetFeatures(nn.Module):
 
     ``style``: ``'encoding'`` (deep-base 3x3 stem with 128 channels for the
     bottleneck variants, stride-8 dilated layer3/4) or ``'torchvision'``
-    (7x7 stem, ``output_stride`` 8/16/32). The stem conv has stride 2.
-    Multi-grid and the HDC plans of :func:`_layer_plan` come with the models
-    that use them (ROADMAP).
+    (7x7 stem, ``output_stride`` 8/16/32). ``hdc`` (``None``, ``'rf'`` or
+    ``'bigger'``) selects a Hybrid Dilated Conv plan of :func:`_layer_plan`
+    instead, and ``stem_stride`` is the first stem conv's stride (1 for
+    DeepLab_DUC_HDC at output stride 4). Multi-grid is not ported yet
+    (ROADMAP).
 
     ``pallas_stem_wgrad`` routes the first stem conv's weight gradient
     through the CUDA kernel of ``ops/conv_wgrad.py`` (the name is segtpu's
     flag). Only valid where the backbone reads the model input: the kernel's
-    input gradient is zero.
+    input gradient is zero. The kernel computes a stride-2 conv, so the flag
+    with ``stem_stride != 2`` raises (segtpu falls back to the plain conv
+    there without a word).
     """
 
     def __init__(self, arch: str = "resnet50", style: str = "torchvision",
                  output_stride: int = 32, in_channels: int = 3,
-                 pallas_stem_wgrad: bool = False):
+                 pallas_stem_wgrad: bool = False, hdc: Optional[str] = None,
+                 stem_stride: int = 2):
         super().__init__()
+        if pallas_stem_wgrad and stem_stride != 2:
+            raise ValueError(f"pallas_stem_wgrad needs stem_stride 2, got "
+                             f"{stem_stride}: the kernel computes a stride-2 conv")
         block_kind, counts = RESNET_LAYERS[arch]
         deep_base = style == "encoding" and block_kind == "bottleneck"
         strides, dils = _layer_plan(arch, style, output_stride,
-                                    multi_grid=False, hdc=None)
+                                    multi_grid=False, hdc=hdc)
 
         k = 3 if deep_base else 7
         if pallas_stem_wgrad:
             first = StemConv2d(in_channels, 64, k, _he_fanout_init)
         else:
-            first = _conv(in_channels, 64, k, 2, k // 2)
+            first = _conv(in_channels, 64, k, stem_stride, k // 2)
         if deep_base:
             conv1 = nn.Sequential(
                 first, batch_norm(64), nn.ReLU(inplace=True),

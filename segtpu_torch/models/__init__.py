@@ -1,6 +1,7 @@
 """Model registry. Counterpart of ``segtpu/models/__init__.py``; PSPNet,
-UperNet and DeepLab (DeepLabV3+, Xception or ResNet) are ported, the other
-names of segtpu's zoo are not yet (ROADMAP)."""
+UperNet, DeepLab (DeepLabV3+, Xception or ResNet), DeepLab_DUC_HDC, UNet,
+UNetResnet, SegNet and SegResNet are ported; ENet, GCN, FCN8 and
+PSPDenseNet are not yet (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -8,10 +9,15 @@ import torch
 
 from segtpu_torch import resolve_device
 from segtpu_torch.models.deeplabv3_plus import DeepLab
+from segtpu_torch.models.duc_hdc import DeepLab_DUC_HDC
 from segtpu_torch.models.pspnet import PSPNet
+from segtpu_torch.models.segnet import SegNet, SegResNet
+from segtpu_torch.models.unet import UNet, UNetResnet
 from segtpu_torch.models.upernet import UperNet
 
-MODELS = {"PSPNet": PSPNet, "UperNet": UperNet, "DeepLab": DeepLab}
+MODELS = {"PSPNet": PSPNet, "UperNet": UperNet, "DeepLab": DeepLab,
+          "DeepLab_DUC_HDC": DeepLab_DUC_HDC, "UNet": UNet, "UNetResnet": UNetResnet,
+          "SegNet": SegNet, "SegResNet": SegResNet}
 
 
 def get_model(name: str, *, device="cuda", seed: int = 0, **kwargs):

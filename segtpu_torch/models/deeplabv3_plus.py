@@ -32,12 +32,15 @@ from segtpu_torch.ops.resize import resize_bilinear
 class _ResNetBackbone(nn.Module):
     """A torchvision-style ResNet under the original DeepLab's names:
     ``layer0`` (stem conv, BN, ReLU; the max pool has no parameters) and
-    ``layer1..4``. Returns ``(layer4 output, layer1 output)``."""
+    ``layer1..4``. Returns ``(layer4 output, layer1 output)``. ``kwargs``
+    go to :class:`ResNetFeatures` (DeepLab_DUC_HDC's ``hdc`` and
+    ``stem_stride``)."""
 
-    def __init__(self, arch: str, output_stride: int, in_channels: int):
+    def __init__(self, arch: str, output_stride: int, in_channels: int, **kwargs):
         super().__init__()
         feats = ResNetFeatures(arch=arch, style="torchvision",
-                               output_stride=output_stride, in_channels=in_channels)
+                               output_stride=output_stride, in_channels=in_channels,
+                               **kwargs)
         self.layer0 = feats.initial
         self.layer1, self.layer2 = feats.layer1, feats.layer2
         self.layer3, self.layer4 = feats.layer3, feats.layer4

@@ -1,12 +1,14 @@
 """Decoder blocks. Counterpart of ``segtpu/nn/blocks.py``: the separable
-conv (Xception), the PSP pyramid (PSPNet, UperNet), ASPP (DeepLabV3+) and
-UperNet's FPN fusion head."""
+conv (Xception), the PSP pyramid (PSPNet, UperNet), ASPP (DeepLabV3+ and
+DeepLab_DUC_HDC), UperNet's FPN fusion head and the Dense Upsampling
+Convolution (DeepLab_DUC_HDC)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.nn.layers import (ConvBNAct, batch_norm, conv2d, kaiming_normal_init,
@@ -169,3 +171,39 @@ class FPNFuse(nn.Module):
         pyramid = [pyramid[0]] + [resize_bilinear(p, size, align_corners=True)
                                   for p in pyramid[1:]]
         return self.conv_fusion(torch.cat(pyramid, dim=1))
+
+
+def icnr_init(upscale: int):
+    """ICNR init of the DUC's 1x1 conv: each group of ``upscale**2``
+    consecutive output channels shares one kaiming-normal subkernel (fan-in
+    ``in``), so the pixel shuffle starts free of checkerboards. segtpu
+    repeats along HWIO's O axis; in OIHW that is ``repeat_interleave`` on
+    dim 0."""
+    r2 = upscale * upscale
+
+    def init(weight, generator=None):
+        sub = torch.empty((weight.shape[0] // r2, *weight.shape[1:]),
+                          dtype=weight.dtype, device=weight.device)
+        kaiming_normal_init(sub, generator)
+        weight.copy_(sub.repeat_interleave(r2, dim=0))
+
+    return init
+
+
+class DUC(nn.Module):
+    """Dense Upsampling Convolution: a bias-free 1x1 conv to
+    ``features * upscale**2`` channels (ICNR init), BN, ReLU, then the pixel
+    shuffle by ``upscale``. segtpu's NHWC shuffle unpacks the channels in
+    the order (c, rh, rw), which is the NCHW order of ``F.pixel_shuffle``.
+    Keys follow the original ``DUC``: ``conv``, ``bn``."""
+
+    def __init__(self, in_ch: int, features: int, upscale: int = 2):
+        super().__init__()
+        self.upscale = upscale
+        self.conv = conv2d(in_ch, features * upscale * upscale, 1,
+                           weight_init=icnr_init(upscale))
+        self.bn = batch_norm(features * upscale * upscale)
+        self.relu = nn.ReLU(inplace=True)
+
+    def forward(self, x):
+        return F.pixel_shuffle(self.relu(self.bn(self.conv(x))), self.upscale)

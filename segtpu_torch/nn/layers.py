@@ -1,8 +1,9 @@
 """Conv / BatchNorm construction and the torch-parity initializers.
 
 Counterpart of ``segtpu/nn/layers.py``. Convolutions are ``nn.Conv2d`` and
-normalization is ``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5: biased variance
-to normalize, unbiased for the running buffer, as segtpu's BatchNorm).
+``nn.ConvTranspose2d``, and normalization is ``nn.BatchNorm2d`` (momentum
+0.1, eps 1e-5: biased variance to normalize, unbiased for the running
+buffer, as segtpu's BatchNorm).
 
 Initializers take an explicit ``torch.Generator``. A conv built with
 :func:`conv2d` remembers its initializers, and :func:`init_parameters`
@@ -61,6 +62,28 @@ def conv2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
     return conv
 
 
+def _transposed(init: Init) -> Init:
+    """``init`` with segtpu's fan-in for a transposed conv, ``k*k*in``: it
+    reads the (in, out, k, k) weight as (out, in, k, k). torch's own default
+    for ``nn.ConvTranspose2d`` reads ``weight.size(1)*k*k``, ``k*k*out``."""
+    return lambda weight, generator=None: init(weight.transpose(0, 1), generator)
+
+
+def conv_transpose2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                     padding: int = 0, bias: bool = True,
+                     weight_init: Init = torch_conv_kernel_init,
+                     bias_init=torch_conv_bias_init) -> nn.ConvTranspose2d:
+    """``nn.ConvTranspose2d`` with segtpu's ``ConvTranspose`` initializers
+    for :func:`init_parameters`: the weight's fan-in is ``k*k*in``, the
+    bias's ``k*k*out``, as segtpu draws them. The weight is torch's (in,
+    out, k, k); segtpu's converter maps it to HWIO without a flip, and
+    segtpu flips it when it runs the conv."""
+    conv = nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+    conv.weight_init = _transposed(weight_init)
+    conv.bias_init = bias_init
+    return conv
+
+
 def batch_norm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
@@ -86,8 +109,10 @@ class FreezableBN(nn.Module):
 @torch.no_grad()
 def init_parameters(module: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
-    """Re-draw every conv built by :func:`conv2d` (or carrying a
-    ``weight_init``), in ``modules()`` order."""
+    """Re-draw every conv built by :func:`conv2d` or
+    :func:`conv_transpose2d` (or carrying a ``weight_init``), in
+    ``modules()`` order. A bias's fan-in is ``weight.shape[1:]``'s product:
+    ``k*k*in`` for a conv, ``k*k*out`` for a transposed one, as segtpu's."""
     for m in module.modules():
         init = getattr(m, "weight_init", None)
         if init is not None:

@@ -38,8 +38,9 @@ from segtpu_torch.metrics import AverageMeter, SegStats
 from segtpu_torch.utils.helpers import dir_exists
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-#: segtpu's trainer keys that the port does not implement yet
-_NOT_PORTED = ("tensorboard", "log_dir", "profile")
+#: segtpu's trainer keys that the port does not implement yet: each is
+#: ignored with a warning
+_NOT_PORTED = ("tensorboard", "log_dir", "profile", "remat", "devices", "device_ids")
 
 
 class TrainingPreempted(RuntimeError):
@@ -79,7 +80,18 @@ class Trainer:
         self.loss_fn = loss_lib.get_loss(loss) if isinstance(loss, str) else loss
 
         cfg_trainer = config["trainer"]
-        self.compute_dtype = _DTYPES[cfg_trainer.get("compute_dtype", "bfloat16")]
+        model_parallel = int(cfg_trainer.get("model_parallel", 1))
+        spatial = bool(cfg_trainer.get("spatial", False))
+        if model_parallel > 1 or spatial:
+            raise ValueError(
+                f"trainer.model_parallel={model_parallel}/spatial={spatial} need a "
+                f"'model' mesh axis; segtpu_torch runs on one device and has no "
+                f"model axis (ROADMAP)")
+        dtype_name = cfg_trainer.get("compute_dtype", "bfloat16")
+        if dtype_name not in _DTYPES:
+            raise ValueError(f"unsupported trainer.compute_dtype {dtype_name!r}; "
+                             f"supported: {sorted(_DTYPES)}")
+        self.compute_dtype = _DTYPES[dtype_name]
         self.epochs = cfg_trainer["epochs"]
         self.save_period = cfg_trainer.get("save_period", 10)
         self.save_per_iters = cfg_trainer.get("save_per_iters", 0)

@@ -1,9 +1,10 @@
 """segtpu variables -> the port's ``state_dict``.
 
 The inverses of ``segtpu/utils/weight_convert.py::convert_pspnet``,
-``convert_upernet``, ``convert_deeplab_xception`` and
-``convert_deeplab_resnet`` (with their ``convert_resnet`` and
-``convert_xception``): segtpu's ``params`` and
+``convert_upernet``, ``convert_deeplab_xception``,
+``convert_deeplab_resnet``, ``convert_duc_hdc``, ``convert_unet``,
+``convert_unet_resnet``, ``convert_segnet`` and ``convert_segresnet`` (with
+their ``convert_resnet`` and ``convert_xception``): segtpu's ``params`` and
 ``batch_stats`` (nested dicts of arrays, HWIO kernels) become a state dict
 in the original torch repo's layout (OIHW kernels), which the port's model
 loads with ``strict=True``.
@@ -23,6 +24,14 @@ def _t(a) -> torch.Tensor:
 
 def _conv(sd, prefix, p):
     sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_t(sd, prefix, p):
+    """A transposed conv: HWIO (kh, kw, I, O) -> torch's (I, O, kh, kw), the
+    inverse of segtpu's ``_convT``; no flip (segtpu flips at call time)."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 3, 0, 1)))
     if "bias" in p:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -142,6 +151,31 @@ def _xception(sd, params, stats, prefix="backbone."):
         _bn(sd, f"{prefix}bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
 
 
+def _aspp(sd, prefix, p, s):
+    """segtpu ASPP variables under the original ``ASSP`` keys."""
+    i = 1
+    while f"aspp{i}_conv" in p:
+        _conv(sd, f"{prefix}.aspp{i}.0", p[f"aspp{i}_conv"])
+        _bn(sd, f"{prefix}.aspp{i}.1", p[f"aspp{i}_bn"], s[f"aspp{i}_bn"])
+        i += 1
+    _conv(sd, f"{prefix}.avg_pool.1", p["pool_conv"])
+    _bn(sd, f"{prefix}.avg_pool.2", p["pool_bn"], s["pool_bn"])
+    _conv(sd, f"{prefix}.conv1", p["project_conv"])
+    _bn(sd, f"{prefix}.bn1", p["project_bn"], s["project_bn"])
+
+
+def _decoder(sd, p, s):
+    """A DeepLab decoder's low-level projection and ``output`` convs under
+    the original's ``decoder.{conv1,bn1,output.{0,1,3,4,7}}``."""
+    _conv(sd, "decoder.conv1", p["ll_conv"])
+    _bn(sd, "decoder.bn1", p["ll_bn"], s["ll_bn"])
+    _conv(sd, "decoder.output.0", p["conv1"])
+    _bn(sd, "decoder.output.1", p["bn1"], s["bn1"])
+    _conv(sd, "decoder.output.3", p["conv2"])
+    _bn(sd, "decoder.output.4", p["bn2"], s["bn2"])
+    _conv(sd, "decoder.output.7", p["classifier"])
+
+
 def deeplab_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
     """segtpu DeepLab ``(params, batch_stats)``, Xception or ResNet backbone,
     -> the port's DeepLab ``state_dict``: ``backbone.*``, ``ASSP.*`` and
@@ -152,22 +186,134 @@ def deeplab_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str,
         _xception(sd, bp, bs)
     else:
         _resnet(sd, bp, bs, prefix="backbone.", initial="layer0")
-    ap, asr = params["aspp"], batch_stats["aspp"]
-    i = 1
-    while f"aspp{i}_conv" in ap:
-        _conv(sd, f"ASSP.aspp{i}.0", ap[f"aspp{i}_conv"])
-        _bn(sd, f"ASSP.aspp{i}.1", ap[f"aspp{i}_bn"], asr[f"aspp{i}_bn"])
-        i += 1
-    _conv(sd, "ASSP.avg_pool.1", ap["pool_conv"])
-    _bn(sd, "ASSP.avg_pool.2", ap["pool_bn"], asr["pool_bn"])
-    _conv(sd, "ASSP.conv1", ap["project_conv"])
-    _bn(sd, "ASSP.bn1", ap["project_bn"], asr["project_bn"])
-    dp, ds = params["decoder"], batch_stats["decoder"]
-    _conv(sd, "decoder.conv1", dp["ll_conv"])
-    _bn(sd, "decoder.bn1", dp["ll_bn"], ds["ll_bn"])
-    _conv(sd, "decoder.output.0", dp["conv1"])
-    _bn(sd, "decoder.output.1", dp["bn1"], ds["bn1"])
-    _conv(sd, "decoder.output.3", dp["conv2"])
-    _bn(sd, "decoder.output.4", dp["bn2"], ds["bn2"])
-    _conv(sd, "decoder.output.7", dp["classifier"])
+    _aspp(sd, "ASSP", params["aspp"], batch_stats["aspp"])
+    _decoder(sd, params["decoder"], batch_stats["decoder"])
+    return sd
+
+
+def _duc(sd, prefix, p, s):
+    _conv(sd, f"{prefix}.conv", p["conv"])
+    _bn(sd, f"{prefix}.bn", p["bn"], s["bn"])
+
+
+def duc_hdc_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu DeepLab_DUC_HDC ``(params, batch_stats)`` -> the port's
+    ``state_dict``: ``backbone.layer0/layerX.*``, ``ASSP.*``,
+    ``decoder.{conv1,bn1,DUC,output}.*`` and ``DUC_out.*``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, params["backbone"], batch_stats["backbone"], prefix="backbone.",
+            initial="layer0")
+    _aspp(sd, "ASSP", params["aspp"], batch_stats["aspp"])
+    _decoder(sd, params["decoder"], batch_stats["decoder"])
+    _duc(sd, "decoder.DUC", params["decoder"]["duc"], batch_stats["decoder"]["duc"])
+    _duc(sd, "DUC_out", params["duc_out"], batch_stats["duc_out"])
+    return sd
+
+
+def _x2conv(sd, prefix, p, s):
+    """segtpu X2Conv under the original ``x2conv`` Sequential's indices."""
+    _conv(sd, f"{prefix}.0", p["conv1"])
+    _bn(sd, f"{prefix}.1", p["bn1"], s["bn1"])
+    _conv(sd, f"{prefix}.3", p["conv2"])
+    _bn(sd, f"{prefix}.4", p["bn2"], s["bn2"])
+
+
+def unet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu UNet ``(params, batch_stats)`` -> the port's ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _x2conv(sd, "start_conv", params["start_conv"], batch_stats["start_conv"])
+    for i in range(1, 5):
+        _x2conv(sd, f"down{i}.down_conv", params[f"down{i}"], batch_stats[f"down{i}"])
+    _x2conv(sd, "middle_conv", params["middle_conv"], batch_stats["middle_conv"])
+    for i in range(1, 5):
+        _conv_t(sd, f"up{i}.up", params[f"up{i}_up"])
+        _x2conv(sd, f"up{i}.up_conv", params[f"up{i}_conv"], batch_stats[f"up{i}_conv"])
+    _conv(sd, "final_conv", params["final_conv"])
+    return sd
+
+
+def unet_resnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict
+                                       ) -> Dict[str, torch.Tensor]:
+    """segtpu UNetResnet ``(params, batch_stats)`` -> the port's
+    ``state_dict``: the encoder under ``initial.*``/``layerX.*``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, params["backbone"], batch_stats["backbone"])
+    for i in range(1, 8):
+        _conv(sd, f"conv{i}", params[f"conv{i}"])
+    for i in range(1, 6):
+        _conv_t(sd, f"upconv{i}", params[f"upconv{i}"])
+    return sd
+
+
+def _stage(sd, prefix, p, s, n):
+    """``n`` (conv, BN) pairs under a Sequential's ``3k``/``3k + 1``."""
+    for ci in range(n):
+        _conv(sd, f"{prefix}.{3 * ci}", p[f"conv{ci}"])
+        _bn(sd, f"{prefix}.{3 * ci + 1}", p[f"bn{ci}"], s[f"bn{ci}"])
+
+
+def segnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu SegNet ``(params, batch_stats)`` -> the port's ``state_dict``:
+    ``stage{1..5}_encoder`` from segtpu's VGG ``backbone``,
+    ``stage{1..5}_decoder`` with the classifier at ``stage5_decoder.6``."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    si = 1
+    while f"stage{si}" in bp:
+        p = bp[f"stage{si}"]
+        _stage(sd, f"stage{si}_encoder", p, bs[f"stage{si}"],
+               sum(k.startswith("conv") for k in p))
+        si += 1
+    si = 1
+    while f"decoder{si}" in params:
+        p = params[f"decoder{si}"]
+        _stage(sd, f"stage{si}_decoder", p, batch_stats[f"decoder{si}"],
+               sum(k.startswith("conv") for k in p))
+        si += 1
+    _conv(sd, "stage5_decoder.6", params["classifier"])
+    return sd
+
+
+def _block(sd, prefix, p, s, transposed=False):
+    """A SegResNet bottleneck: ``conv1..3``/``bn1..3`` and its
+    ``downsample`` or ``shortcut`` under ``downsample.{0,1}``; with
+    ``transposed`` (the decoder's up blocks) ``conv2`` and the shortcut are
+    transposed convs."""
+    for ci in (1, 2, 3):
+        conv = _conv_t if transposed and ci == 2 else _conv
+        conv(sd, f"{prefix}.conv{ci}", p[f"conv{ci}"])
+        _bn(sd, f"{prefix}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+    for name in ("downsample", "shortcut"):
+        if f"{name}_conv" in p:
+            conv = _conv_t if transposed else _conv
+            conv(sd, f"{prefix}.downsample.0", p[f"{name}_conv"])
+            _bn(sd, f"{prefix}.downsample.1", p[f"{name}_bn"], s[f"{name}_bn"])
+
+
+def segresnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict
+                                     ) -> Dict[str, torch.Tensor]:
+    """segtpu SegResNet ``(params, batch_stats)`` -> the port's
+    ``state_dict``: ``first_conv.{0,1}``, ``encoder.{li}.{bi}``,
+    ``decoder.{si}.{bi}`` (each stage's last block the up or last
+    bottleneck) and ``last_conv.{0,1}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "first_conv.0", params["backbone_stem_conv"])
+    _bn(sd, "first_conv.1", params["backbone_stem_bn"], batch_stats["backbone_stem_bn"])
+    for li in range(4):
+        bi = 0
+        while f"backbone_layer{li + 1}_{bi}" in params:
+            name = f"backbone_layer{li + 1}_{bi}"
+            _block(sd, f"encoder.{li}.{bi}", params[name], batch_stats[name])
+            bi += 1
+    for si in range(4):
+        bi = 0
+        while f"decoder{si + 1}_{bi}" in params:
+            name = f"decoder{si + 1}_{bi}"
+            _block(sd, f"decoder.{si}.{bi}", params[name], batch_stats[name])
+            bi += 1
+        last = f"decoder{si + 1}_up" if si < 3 else "decoder4_last"
+        _block(sd, f"decoder.{si}.{bi}", params[last], batch_stats[last],
+               transposed=si < 3)
+    _conv_t(sd, "last_conv.0", params["last_up"])
+    _conv(sd, "last_conv.1", params["classifier"])
     return sd

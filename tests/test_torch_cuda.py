@@ -358,3 +358,29 @@ def test_prefetched_batches_on_the_card_equal_the_host_batches(cuda_device):
     it = iter(DevicePrefetcher(batches, cuda_device, depth=1))
     next(it)
     it.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 65, 65), (8, 64, 385, 385)])
+def test_max_unpool_flat_on_the_card_equals_the_cpu(shape, cuda_device):
+    """The card's winner among repeated indices is the CPU's (the highest
+    row-major pooled pixel), bit for bit on one bf16 input, forward and
+    backward; the second shape is SegResNet's stem at 769."""
+    from segtpu_torch.ops.pooling import max_pool_argmax_flat, max_unpool_flat
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.maximum(rng.integers(-3, 3, size=shape), 0)).bfloat16()
+    _, idx = max_pool_argmax_flat(x)
+    flat = idx.flatten(2)
+    assert (flat.sort(dim=2).values.diff(dim=2) == 0).any()  # repeats exist
+    ho, wo = idx.shape[-2:]
+    y = torch.from_numpy(rng.normal(size=idx.shape)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(*idx.shape[:2], 2 * ho, 2 * wo))).bfloat16()
+    outs = []
+    for dev in ("cpu", cuda_device):
+        yd = y.to(dev).detach().requires_grad_()
+        out = max_unpool_flat(yd, idx.to(dev), (2 * ho, 2 * wo))
+        out.backward(g.to(dev))
+        outs.append((out.detach().cpu(), yd.grad.cpu()))
+    (cpu_out, cpu_grad), (card_out, card_grad) = outs
+    assert torch.equal(card_out, cpu_out) and torch.equal(card_grad, cpu_grad)

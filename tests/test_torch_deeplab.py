@@ -11,7 +11,7 @@ has no depth knob) and ResNet-18/50, output stride 8 and 16, 33 px, batch 4.
   ``convert_deeplab_resnet`` giving the variables back bit for bit;
 * 1 and 3 steps of AdamW under OneCycle with ``CE_DiceLoss``: parameters and
   running statistics within 1e-4 relative. The steps run in float64 on both
-  sides (``_segtpu_float64``): an Adam update takes about ``lr * sign(g)``
+  sides (``segtpu_float64``): an Adam update takes about ``lr * sign(g)``
   per element, so in fp32 an element whose gradient is at the noise level
   may flip sign and move by ``2 lr``;
 * ``freeze_bn``: train-mode logits are segtpu's with ``freeze_bn``, and no
@@ -19,7 +19,6 @@ has no depth knob) and ResNet-18/50, output stride 8 and 16, 33 px, batch 4.
 * the training CLI on Synthetic with ``"arch": {"type": "DeepLab"}``.
 """
 
-import contextlib
 import functools
 
 import flax
@@ -34,8 +33,6 @@ from segtpu import losses as seg_losses
 from segtpu.core import state as seg_state
 from segtpu.core.steps import make_train_step as seg_make_train_step
 from segtpu.models.deeplabv3_plus import DeepLab as SegtpuDeepLab
-from segtpu.nn import blocks as seg_blocks
-from segtpu.ops import resize as seg_resize
 from segtpu.utils.weight_convert import convert_deeplab_resnet, convert_deeplab_xception
 from segtpu_torch import losses
 from segtpu_torch import train as train_cli
@@ -43,9 +40,9 @@ from segtpu_torch.core.state import TrainState, make_optimizer
 from segtpu_torch.core.steps import make_train_step
 from segtpu_torch.models import get_model
 from segtpu_torch.models.deeplabv3_plus import DeepLab
-from segtpu_torch.utils import weight_convert
 from segtpu_torch.utils.weight_convert import deeplab_state_dict_from_segtpu
-from torch_parity import IdentityDropout, _init_segtpu, nchw, nhwc, no_dropout, rel_max
+from torch_parity import (IdentityDropout, _init_segtpu, nchw, nhwc, no_dropout, rel_max,
+                          segtpu_float64, state_dict64)
 
 torch.set_num_threads(1)
 
@@ -81,12 +78,7 @@ def _port(params, stats, backbone, output_stride, **kw):
 
 
 def _sd64(params, stats):
-    """:func:`deeplab_state_dict_from_segtpu` without its float32 cast, for
-    the float64 runs."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(weight_convert, "_t",
-                   lambda a: torch.from_numpy(np.array(a, dtype=np.float64)))
-        return deeplab_state_dict_from_segtpu(params, stats)
+    return state_dict64(deeplab_state_dict_from_segtpu, params, stats)
 
 
 def _images(seed, hw=HW, batch=BATCH):
@@ -116,7 +108,7 @@ def test_train_logits_and_running_stats_match_segtpu(backbone, output_stride):
     and parameters), which keeps this file's JAX compiles few."""
     model, params, stats = _segtpu(backbone, output_stride)
     x = _images(1).astype(np.float64)
-    with _segtpu_float64():
+    with segtpu_float64():
         want, mutated = jax.jit(functools.partial(
             model.apply, train=True, mutable=["batch_stats"]))(
             jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
@@ -207,37 +199,6 @@ def test_segtpu_freeze_bn_also_turns_dropout_off():
     assert not torch.equal(got[0], got[1])
 
 
-class _Float64:
-    """A module (``jax.numpy`` or ``numpy``) with ``float32`` meaning
-    ``float64``."""
-
-    def __init__(self, module):
-        self._module = module
-        self.float32 = module.float64
-
-    def __getattr__(self, name):
-        return getattr(self._module, name)
-
-
-@contextlib.contextmanager
-def _segtpu_float64():
-    """segtpu in float64: x64 on, and the float32 casts on DeepLab's path
-    made float64 (Dice's logits, ASPP's image-pool mean, the resize
-    matrices); dropout is the identity. Nothing in segtpu changes."""
-    prev = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", True)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(seg_losses, "jnp", _Float64(jnp))
-        mp.setattr(seg_blocks, "jnp", _Float64(jnp))
-        mp.setattr(seg_resize, "np", _Float64(np))
-        mp.setattr(seg_resize, "_linear_matrix_np", seg_resize._linear_matrix_np.__wrapped__)
-        mp.setattr(flax.linen, "Dropout", IdentityDropout)
-        try:
-            yield
-        finally:
-            jax.config.update("jax_enable_x64", prev)
-
-
 STEPS = 3
 OPT = dict(optimizer_type="AdamW", lr=0.01, weight_decay=1e-2, scheduler_type="OneCycle",
            num_epochs=1, iters_per_epoch=10)
@@ -265,7 +226,7 @@ def _trajectories(backbone, output_stride, steps):
     batches = _batches(steps)
     model, params, stats = _segtpu(backbone, output_stride)
     port = no_dropout(_port(params, stats, backbone, output_stride)).double()
-    with _segtpu_float64():
+    with segtpu_float64():
         params, stats = jax.tree_util.tree_map(
             lambda a: jnp.asarray(a, jnp.float64), (params, stats))
         tx, _ = seg_state.make_optimizer_with_schedules(**OPT)

@@ -1,22 +1,27 @@
 """The port's ops, loss, metrics, schedule and optimizer against segtpu's, on
 the CPU in fp32. Inputs come from numpy and go through both."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from segtpu import losses as seg_losses
 from segtpu import metrics as seg_metrics
 from segtpu import schedules as seg_schedules
 from segtpu.backbones import resnet as seg_resnet
 from segtpu.core import state as seg_state
+from segtpu.nn import layers as seg_layers
+from segtpu.ops import pixelshuffle as seg_pixelshuffle
 from segtpu.ops import pooling as seg_pooling
 from segtpu.ops import resize as seg_resize
 from segtpu_torch import losses, metrics, schedules
 from segtpu_torch.backbones import resnet
 from segtpu_torch.core.state import TrainState, make_optimizer, partition_labels
+from segtpu_torch.nn import layers
 from segtpu_torch.ops import pooling, resize
 from torch_parity import nchw, nhwc
 
@@ -176,3 +181,122 @@ def test_sgd_two_groups_match_segtpu_optax():
                                    rtol=1e-6, atol=1e-7)
     assert state.step == 5
     assert state.current_lrs() == pytest.approx([scheds[0](4), scheds[0](4) * 0.1])
+
+
+@pytest.mark.parametrize("factor,shape", [(2, (2, 5, 7, 12)), (4, (1, 3, 4, 32))])
+def test_pixel_shuffle_matches_segtpu(factor, shape):
+    """segtpu's NHWC channel order (c, rh, rw) is torch's NCHW one, so the
+    port's ``DUC`` calls ``F.pixel_shuffle``."""
+    x = np.random.default_rng(3).normal(size=shape).astype(np.float32)
+    want = np.asarray(seg_pixelshuffle.pixel_shuffle(jnp.asarray(x), factor))
+    got = nhwc(F.pixel_shuffle(nchw(x), factor))
+    np.testing.assert_array_equal(got, want)  # a permutation is exact
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 17, 3), (1, 8, 9, 2), (2, 5, 5, 4)])
+def test_max_pool_ceil_mode_matches_segtpu(shape):
+    x = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+    want = np.asarray(seg_pooling.max_pool(jnp.asarray(x), 2, ceil_mode=True))
+    got = nhwc(pooling.max_pool(nchw(x), 2, ceil_mode=True))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k,s,p", [(2, 2, 0), (4, 2, 1)])
+@pytest.mark.parametrize("hw", [(8, 8), (9, 7)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv_transpose_matches_segtpu(k, s, p, hw, bias):
+    """The port's (in, out, k, k) weight is segtpu's HWIO kernel transposed
+    by (2, 3, 0, 1), with no flip: an asymmetric kernel tells the two
+    apart."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, *hw, 5)).astype(np.float32)
+    mod = seg_layers.ConvTranspose(3, k, s, p, use_bias=bias)
+    variables = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(mod.apply(variables, jnp.asarray(x)))
+    conv = layers.conv_transpose2d(5, 3, k, s, p, bias=bias)
+    kernel = np.array(variables["params"]["kernel"])
+    assert not np.array_equal(kernel, kernel[::-1, ::-1])
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(kernel.transpose(2, 3, 0, 1)))
+        if bias:
+            conv.bias.copy_(torch.from_numpy(np.array(variables["params"]["bias"])))
+        got = nhwc(conv(nchw(x)))
+    assert got.shape == want.shape == (2, (hw[0] - 1) * s - 2 * p + k,
+                                       (hw[1] - 1) * s - 2 * p + k, 3)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_conv_transpose_init_draws_segtpus_fan_in():
+    """Weight U(+-1/sqrt(k*k*in)) and bias U(+-1/sqrt(k*k*out)), segtpu's
+    bounds (torch's own default weight bound reads k*k*out)."""
+    conv = layers.conv_transpose2d(64, 4, 2, 2)
+    layers.init_parameters(conv, torch.Generator().manual_seed(0))
+    w_bound, b_bound = 1 / np.sqrt(2 * 2 * 64), 1 / np.sqrt(2 * 2 * 4)
+    assert 0.95 * w_bound < conv.weight.abs().max().item() <= w_bound
+    assert conv.bias.abs().max().item() <= b_bound
+    seg = seg_layers.ConvTranspose(4, 2, 2).init(jax.random.PRNGKey(0),
+                                                 jnp.zeros((1, 3, 3, 64)))["params"]
+    assert 0.95 * w_bound < float(jnp.abs(seg["kernel"]).max()) <= w_bound
+    assert float(jnp.abs(seg["bias"]).max()) <= b_bound
+
+
+def _tied(rng, shape):
+    """Integer values and ReLU zeros: windows with tied maxima."""
+    return np.maximum(rng.integers(-3, 3, size=shape), 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 7, 3), (1, 8, 8, 2), (2, 33, 33, 4)])
+def test_max_pool_argmax_and_unpool_match_segtpu(shape):
+    """Pooled values, the unpooled plane, and the window position each
+    index names (segtpu's int8 position inside the 2x2 window): the first
+    row-major tap wins ties on both."""
+    x = _tied(np.random.default_rng(7), shape)
+    pooled_w, idx_w = seg_pooling.max_pool_argmax(jnp.asarray(x))
+    pooled, idx = pooling.max_pool_argmax(nchw(x))
+    np.testing.assert_array_equal(nhwc(pooled), np.asarray(pooled_w))
+    w = shape[2]
+    pos = (idx // w % 2) * 2 + idx % w % 2
+    np.testing.assert_array_equal(pos.numpy().transpose(0, 2, 3, 1), np.asarray(idx_w))
+    ties = (x[:, :shape[1] // 2 * 2:2, :shape[2] // 2 * 2:2] ==
+            x[:, 1:shape[1] // 2 * 2:2, 1:shape[2] // 2 * 2:2]).sum()
+    assert ties > 0
+    y = np.random.default_rng(8).normal(size=np.asarray(pooled_w).shape).astype(np.float32)
+    want = np.asarray(seg_pooling.max_unpool(jnp.asarray(y), idx_w, output_size=shape[1:3]))
+    got = nhwc(pooling.max_unpool(nchw(y), idx, shape[1:3]))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 33, 3), (1, 36, 36, 2), (2, 17, 12, 3)])
+def test_max_pool_argmax_flat_matches_segtpu(shape):
+    x = _tied(np.random.default_rng(9), shape)
+    pooled_w, idx_w = seg_pooling.max_pool_argmax_flat(jnp.asarray(x))
+    pooled, idx = pooling.max_pool_argmax_flat(nchw(x))
+    np.testing.assert_array_equal(nhwc(pooled), np.asarray(pooled_w))
+    np.testing.assert_array_equal(idx.numpy().transpose(0, 2, 3, 1), np.asarray(idx_w))
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 33, 3), (1, 36, 36, 2), (2, 17, 12, 3)])
+def test_max_unpool_flat_matches_segtpu_where_indices_repeat(shape):
+    """Overlapping 3x3/2 windows pick one position several times; the values
+    put back there (the decoder's, not the pooled maxima) differ, and the
+    highest row-major pooled pixel's wins. Backward: every pooled pixel
+    reads the cotangent at its index, as segtpu's custom VJP."""
+    rng = np.random.default_rng(10)
+    x = _tied(rng, shape)
+    _, idx_w = seg_pooling.max_pool_argmax_flat(jnp.asarray(x))
+    _, idx = pooling.max_pool_argmax_flat(nchw(x))
+    b, ho, wo, c = np.asarray(idx_w).shape
+    flat = np.asarray(idx_w).transpose(0, 3, 1, 2).reshape(b * c, ho * wo)
+    repeats = sum(ho * wo - len(np.unique(row)) for row in flat)
+    assert repeats > 0
+    out_hw = (2 * ho, 2 * wo)
+    y = rng.normal(size=(b, ho, wo, c)).astype(np.float32)
+    g = rng.normal(size=(b, *out_hw, c)).astype(np.float32)
+    want, vjp = jax.vjp(lambda v: seg_pooling.max_unpool_flat(
+        v, idx_w, out_hw, input_hw=shape[1:3]), jnp.asarray(y))
+    (want_gy,) = vjp(jnp.asarray(g))
+    yt = nchw(y).requires_grad_()
+    got = pooling.max_unpool_flat(yt, idx, out_hw)
+    got.backward(nchw(g))
+    np.testing.assert_array_equal(nhwc(got), np.asarray(want))
+    np.testing.assert_array_equal(nhwc(yt.grad), np.asarray(want_gy))

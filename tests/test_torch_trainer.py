@@ -2,6 +2,7 @@
 that an entry point asked for no device runs on CUDA or raises."""
 
 import json
+import logging
 import math
 import re
 import subprocess
@@ -87,6 +88,46 @@ def test_get_model_and_trainer_without_device_raise_without_cuda():
     model = get_model("PSPNet", device="cpu", num_classes=3, backbone="resnet18")
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         Trainer(model, "CrossEntropyLoss2d", cfg, loader)
+
+
+def _cpu_trainer(cfg):
+    loader = Synthetic(**cfg["train_loader"]["args"])
+    model = get_model("PSPNet", device="cpu", num_classes=3, backbone="resnet18")
+    return Trainer(model, "CrossEntropyLoss2d", cfg, loader, device="cpu")
+
+
+@pytest.mark.parametrize("keys", [{"model_parallel": 2}, {"spatial": True},
+                                  {"model_parallel": 4, "spatial": True}])
+def test_trainer_raises_on_a_model_axis(keys):
+    """segtpu raises when ``model_parallel`` or ``spatial`` asks for a model
+    axis its mesh lacks; the port runs on one device and has none."""
+    with pytest.raises(ValueError, match="runs on one device and has no model axis"):
+        _cpu_trainer(_config(**keys))
+
+
+def test_trainer_warns_on_remat_and_device_keys():
+    """``remat``, ``devices`` and ``device_ids`` are ignored with a warning
+    each; ``model_parallel: 1`` and ``spatial: false`` are accepted."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("segtpu_torch.Trainer")
+    logger.addHandler(handler)
+    try:
+        _cpu_trainer(_config(remat=True, devices=2, device_ids="0,1",
+                             model_parallel=1, spatial=False))
+    finally:
+        logger.removeHandler(handler)
+    msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
+    assert msgs == [f"trainer.{k} is not ported yet (ROADMAP); ignored"
+                    for k in ("remat", "devices", "device_ids")]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bf16", "float64"])
+def test_trainer_rejects_an_unsupported_compute_dtype(dtype):
+    with pytest.raises(ValueError, match=rf"compute_dtype '{dtype}'; supported: "
+                                         r"\['bfloat16', 'float32'\]"):
+        _cpu_trainer(_config(compute_dtype=dtype))
 
 
 @pytest.mark.parametrize("monitor", ["min val_loss", "max Pixel_Accuracy",

@@ -8,16 +8,24 @@ segtpu's variables to the port through ``pspnet_state_dict_from_segtpu`` and
 
 from __future__ import annotations
 
+import contextlib
+
 import flax
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from segtpu import losses as seg_losses
 from segtpu.models.pspnet import PSPNet as SegtpuPSPNet
 from segtpu.models.upernet import UperNet as SegtpuUperNet
+from segtpu.nn import blocks as seg_blocks
+from segtpu.ops import resize as seg_resize
 from segtpu_torch.models.pspnet import PSPNet
 from segtpu_torch.models.upernet import UperNet
+from segtpu_torch.utils import weight_convert
 from segtpu_torch.utils.weight_convert import (pspnet_state_dict_from_segtpu,
                                                upernet_state_dict_from_segtpu)
 
@@ -113,3 +121,43 @@ class IdentityDropout:
 
     def __call__(self, x, *a, **k):
         return x
+
+
+class _Float64:
+    """A module (``jax.numpy`` or ``numpy``) with ``float32`` meaning
+    ``float64``."""
+
+    def __init__(self, module):
+        self._module = module
+        self.float32 = module.float64
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+@contextlib.contextmanager
+def segtpu_float64():
+    """segtpu in float64: x64 on, and the float32 casts on the models' paths
+    made float64 (the losses' logits, ASPP's image-pool mean, the resize
+    matrices); dropout is the identity. Nothing in segtpu changes."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(seg_losses, "jnp", _Float64(jnp))
+        mp.setattr(seg_blocks, "jnp", _Float64(jnp))
+        mp.setattr(seg_resize, "np", _Float64(np))
+        mp.setattr(seg_resize, "_linear_matrix_np", seg_resize._linear_matrix_np.__wrapped__)
+        mp.setattr(flax.linen, "Dropout", IdentityDropout)
+        try:
+            yield
+        finally:
+            jax.config.update("jax_enable_x64", prev)
+
+
+def state_dict64(convert, params, stats):
+    """``convert(params, stats)``, a ``*_state_dict_from_segtpu``, without
+    its float32 cast, for the float64 runs."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(weight_convert, "_t",
+                   lambda a: torch.from_numpy(np.array(a, dtype=np.float64)))
+        return convert(params, stats)
