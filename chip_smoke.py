@@ -47,7 +47,8 @@ Phases, each announced on its own line:
    generators' or the momentum buffers' restore, must fail those checks;
    then the main path times the train step on one device-resident batch,
    and traces a few more steps with torch.profiler for the device time by
-   kernel category and the device's idle share, under the same flags;
+   kernel category and the device's idle share, under the same flags; the
+   losses of the timed and traced steps must be finite (so on every path);
 7. PSPNet in-step check, from the same weights: in a bf16 step and in an
    fp32 step, the stem conv's weight gradient against the plain version on
    that step's own x and dy; on two batches, the fp32 gradient with the
@@ -102,7 +103,15 @@ Phases, each announced on its own line:
     their own. On SegResNet, two eval forwards of one batch give the same
     bits, and the card's ``max_unpool_flat`` on a bf16 step's own decoder
     tensor and stem-pool indices equals the CPU's bit for bit, forward and
-    backward, with the indices' repeats counted;
+    backward, with the indices' repeats counted. Then the last four models:
+    ENet (with a validation pass, then the inference CLI, sliding bf16, on
+    one frame), GCN-R50 (torchvision ResNet-50, bilinear decoder; the device
+    ms of ``br9``'s two 3x3 convs at 19 channels over 769x769, beside their
+    bound), GCN-ResnetGCN-deconv (timed, not traced), FCN8 (plain VGG-16,
+    the fixed bilinear upsamplers as transposed convs; the device ms of
+    conv6, 7x7 from 512 to 4096 channels, beside its bound) and PSPDenseNet-201
+    with ``remat_backbone`` off (traced) and on (timed, not traced), each
+    with its peak memory;
 14. losses on the card: every name of the port's ``LOSSES``, plus
     ``lovasz_hinge`` and ``binary_xloss``, on bf16 logits 8x19x769x769 with
     255-ignored labels: forward + backward ms and peak memory at full size;
@@ -228,6 +237,7 @@ CATEGORIES = [
     ("nvjet", "matmul (cuBLAS)"),
     ("gemm", "matmul (cuBLAS)"),
     ("reduce_kernel", "reductions (loss, stats)"),
+    ("CatArray", "concat"),
     ("cat", "concat"),
     ("elementwise", "elementwise and copies"),
     ("copy", "elementwise and copies"),
@@ -387,6 +397,24 @@ def _pixel_shuffle_op(evt) -> bool:
     return evt.name == "aten::pixel_shuffle" or evt.name.endswith("PixelShuffleBackward0")
 
 
+def _conv_on(x_shape, w_shape):
+    """A predicate: a traced convolution op, forward or backward, of an
+    input of ``x_shape`` (NCHW) and a weight of ``w_shape`` (OIHW); the
+    backward is told by its recorded gradient's, input's and weight's
+    shapes."""
+    x_shape, w_shape = list(x_shape), list(w_shape)
+
+    def pred(evt):
+        shapes = getattr(evt, "input_shapes", None) or []
+        if evt.name == "aten::convolution" and len(shapes) > 1:
+            return shapes[0] == x_shape and shapes[1] == w_shape
+        if evt.name == "aten::convolution_backward" and len(shapes) > 2:
+            return shapes[1] == x_shape and shapes[2] == w_shape
+        return False
+
+    return pred
+
+
 #: traced ops whose kernels form a category of their own (op shapes and
 #: arguments recorded in the trace)
 DEPTHWISE_OP = (_depthwise_op, DEPTHWISE)
@@ -500,15 +528,15 @@ def read_launches():
 
 
 def train_main_path(label, config, want_launches, card, recorder, after_train=None,
-                    ops=()):
+                    ops=(), trace=True):
     """Train ``config`` through ``segtpu_torch.train.main`` with the launch
     counts set to 0 just before and read just after, its steps recorded;
     check the epoch log (and its validation, where the config runs one);
-    call ``after_train(trainer)``; check an eval step; time and trace the
-    train step (outside the recorded run; ``ops`` as in
+    call ``after_train(trainer)``; check an eval step; time and, with
+    ``trace``, trace the train step (outside the recorded run; ``ops`` as in
     ``profile_steps``). Returns (trainer, launches, one device-resident
     train batch, one val batch, the timed step's numbers with the traced
-    device ms by category)."""
+    device ms by category, None untraced)."""
     import torch
 
     from segtpu_torch import train as train_cli
@@ -560,11 +588,15 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
 
     images, labels = next(iter(DevicePrefetcher(trainer.train_loader, dev)))
     torch.cuda.reset_peak_memory_stats()
-    step_s = []
+    step_s, step_losses = [], []
+
+    def step():
+        step_losses.append(trainer.train_step(trainer.state, images, labels)[0])
+
     for i in range(2 + TIMED_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        trainer.train_step(trainer.state, images, labels)
+        step()
         torch.cuda.synchronize()
         if i >= 2:
             step_s.append(time.perf_counter() - t)
@@ -574,10 +606,18 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
           f"{BATCH * 1e3 / ms_step:.2f} imgs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     numbers = {"ms_per_step": ms_step, "imgs_per_s": BATCH * 1e3 / ms_step,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    numbers["device_ms_by_category"] = profile_steps(
-        lambda: trainer.train_step(trainer.state, images, labels), TRACED_STEPS, card,
-        ops=ops)
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "device_ms_by_category": None}
+    if trace:
+        numbers["device_ms_by_category"] = profile_steps(step, TRACED_STEPS, card, ops=ops)
+    else:
+        print(f"{label}: not traced (idle share and device ms not measured on this path)")
+    # the timed and traced steps' own losses: no time above is of a state
+    # gone to inf or NaN
+    losses_ = [float(v) for v in step_losses]
+    print(f"{label}: losses of the {len(losses_)} warm-up, timed"
+          f"{' and traced' if trace else ''} steps {losses_}")
+    check(all(math.isfinite(v) for v in losses_), f"{label}: non-finite timed step losses")
     return trainer, launches, (images, labels), (val_images, val_labels), numbers
 
 
@@ -1800,18 +1840,37 @@ def deeplab_phases(workdir, seed, card, recorder):
             "DeepLabV3+-Xception inference": dl_infer_launches}, deeplab_numbers
 
 
+#: convs traced as categories of their own: (category, input NCHW, weight
+#: OIHW, output HW, convs of that shape a step). GCN-R50's ``br9``: two 3x3
+#: convs at 19 channels over the whole 769x769 map; FCN8's conv6 (FC6)
+BR9 = ("GCN br9 3x3 convs, C=19 at 769x769 (cuDNN)", (BATCH, CLASSES, CROP, CROP),
+       (CLASSES, CLASSES, 3, 3), (CROP, CROP), 2)
+FC6 = ("FCN8 conv6 7x7, 512->4096 at 31x31 (cuDNN)", (BATCH, 512, 31, 31),
+       (4096, 512, 7, 7), (25, 25), 1)
+BR9_OP, FC6_OP = ((_conv_on(x, w), cat) for cat, x, w, _, _ in (BR9, FC6))
 # the zoo paths at segtpu's defaults (full width and depth): (label, arch,
 # whether the run validates and keeps a best_model, the traced ops that
-# form categories of their own)
+# form categories of their own, whether the steps are traced)
 ZOO_PATHS = [
     ("DeepLab_DUC_HDC-R101", {"type": "DeepLab_DUC_HDC",
                               "args": {"backbone": "resnet101", "output_stride": 8}},
-     True, [PIXEL_SHUFFLE_OP]),
-    ("UNet", {"type": "UNet", "args": {}}, False, [TRANSPOSED_OP]),
+     True, [PIXEL_SHUFFLE_OP], True),
+    ("UNet", {"type": "UNet", "args": {}}, False, [TRANSPOSED_OP], True),
     ("UNetResnet-R50", {"type": "UNetResnet", "args": {"backbone": "resnet50"}}, False,
-     [TRANSPOSED_OP]),
-    ("SegNet", {"type": "SegNet", "args": {}}, False, [UNPOOL_OP]),
-    ("SegResNet", {"type": "SegResNet", "args": {}}, False, [TRANSPOSED_OP, UNPOOL_OP]),
+     [TRANSPOSED_OP], True),
+    ("SegNet", {"type": "SegNet", "args": {}}, False, [UNPOOL_OP], True),
+    ("SegResNet", {"type": "SegResNet", "args": {}}, False, [TRANSPOSED_OP, UNPOOL_OP],
+     True),
+    ("ENet", {"type": "ENet", "args": {}}, True, [TRANSPOSED_OP, UNPOOL_OP], True),
+    ("GCN-R50", {"type": "GCN", "args": {"backbone": "resnet50"}}, False, [BR9_OP], True),
+    ("GCN-ResnetGCN-deconv", {"type": "GCN", "args": {
+        "backbone": "resnet50", "use_resnet_gcn": True, "use_deconv": True}},
+     False, [], False),
+    ("FCN8", {"type": "FCN8", "args": {}}, False, [TRANSPOSED_OP, FC6_OP], True),
+    ("PSPDenseNet-201", {"type": "PSPDenseNet", "args": {"backbone": "densenet201"}},
+     False, [], True),
+    ("PSPDenseNet-201 remat", {"type": "PSPDenseNet", "args": {
+        "backbone": "densenet201", "remat_backbone": True}}, False, [], False),
 ]
 ZOO_STEPS = 2
 
@@ -1877,23 +1936,34 @@ def segresnet_checks(trainer, batch, val_batch, card):
 def zoo_phases(workdir, seed, card, recorder):
     """The ZOO_PATHS through ``segtpu_torch.train.main`` (19 classes, 769x769,
     batch 8, uint8 transport, bf16, CE, two-group SGD under Poly), ZOO_STEPS
-    steps each (DeepLab_DUC_HDC with a validation pass), then timed and
-    traced as in phase 6; no hand-written kernel (every count 0). SegResNet's
-    own checks (``segresnet_checks``) and the inference CLI on
-    DeepLab_DUC_HDC's best_model. Returns (launches by path, numbers)."""
+    steps each (DeepLab_DUC_HDC and ENet with a validation pass), then timed
+    and, where the path says so, traced as in phase 6; no hand-written
+    kernel (every count 0). SegResNet's own checks (``segresnet_checks``),
+    GCN-R50's br9 convs and FCN8's conv6 against their bounds, and the
+    inference CLI on DeepLab_DUC_HDC's and ENet's best_model. Returns
+    (launches by path, numbers)."""
     import torch
 
     no_kernel = {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}
     launches, numbers = {}, {}
-    for label, arch, val, ops in ZOO_PATHS:
+    for label, arch, val, ops, trace in ZOO_PATHS:
         phase(f"main path: {label}")
         config = smoke_config(arch, os.path.join(workdir, "saved"),
                               save_period=1 if val else 10, steps=ZOO_STEPS, val=val)
         trainer, launches[label], batch, val_batch, numbers[label] = train_main_path(
-            label, config, no_kernel, card, recorder, ops=ops)
-        cats = numbers[label]["device_ms_by_category"]
+            label, config, no_kernel, card, recorder, ops=ops, trace=trace)
+        cats = numbers[label]["device_ms_by_category"] or {}
         for _, cat in ops:
             check(cats.get(cat, 0.0) > 0, f"no device time attributed to {cat} on {label}")
+        if label == "GCN-R50":
+            check(cats.get("bilinear resize", 0.0) > 0, "no resize in GCN-R50's trace")
+            numbers[label]["br9_bound"] = conv_bound(label, BR9, cats, card)
+        if label == "FCN8":
+            numbers[label]["conv6_bound"] = conv_bound(label, FC6, cats, card)
+        if label == "PSPDenseNet-201 remat":
+            print(f"PSPDenseNet-201 peak memory: remat_backbone off "
+                  f"{numbers['PSPDenseNet-201']['peak_gib']:.2f} GiB, on "
+                  f"{numbers[label]['peak_gib']:.2f} GiB [{card}]")
         if label == "SegResNet":
             numbers[label].update(segresnet_checks(trainer, batch, val_batch, card))
         best = os.path.join(trainer.checkpoint_dir, "best_model") if val else None
@@ -1907,6 +1977,22 @@ def zoo_phases(workdir, seed, card, recorder):
             gc.collect()
             torch.cuda.empty_cache()
     return launches, numbers
+
+
+def conv_bound(label, conv, cats, card):
+    """The traced device ms of ``conv`` (a BR9-like tuple) on ``label``
+    against its bound: each conv of the shape run forward and for its input
+    and weight gradients, bf16; each of the three passes reads two of x, w
+    and y (or dy) once and writes the third once."""
+    cat, (n, c, h, w), (o, _, kh, kw), (ho, wo), count = conv
+    ms = cats[cat]
+    nbytes = count * 3 * 2 * (n * c * h * w + o * c * kh * kw + n * o * ho * wo)
+    flops = count * 3 * 2 * n * ho * wo * o * c * kh * kw
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"{label} {cat}, forward and backward: {ms:.3f} ms per traced step, bound "
+          f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB) "
+          f"[{card}]")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main(argv=None):

@@ -1,10 +1,11 @@
-"""VGG-16-BN stages with argmax indices for SegNet.
+"""VGG-16 feature stacks for FCN8 and SegNet.
 
-Counterpart of ``segtpu/backbones/vgg.py``: the five stages of torchvision's
-VGG-16-BN (3x3/pad-1 convs with bias, each followed by BN and ReLU), each
-ended by a 2x2 max pool that keeps its argmax indices and the size it
-pooled, for SegNet's unpooling decoder. The plain ``VGG16Features`` (FCN8's:
-ceil-mode pools, the first conv padded by 100) is not ported yet (ROADMAP).
+Counterpart of ``segtpu/backbones/vgg.py``. SegNet's: the five stages of
+torchvision's VGG-16-BN (3x3/pad-1 convs with bias, each followed by BN and
+ReLU), each ended by a 2x2 max pool that keeps its argmax indices and the
+size it pooled, for its unpooling decoder. FCN8's: torchvision's plain
+VGG-16 ``features`` (conv and ReLU per width, a 2x2 max pool after each
+stage), with the first conv padded by 100 and ceil-mode pools.
 """
 
 from __future__ import annotations
@@ -32,6 +33,24 @@ class VGG16Stage(nn.Sequential):
             layers += [conv2d(in_ch, w, 3, padding=1, bias=True), batch_norm(w),
                        nn.ReLU(inplace=True)]
             in_ch = w
+        super().__init__(*layers)
+
+
+class VGG16Features(nn.Sequential):
+    """FCN8's torchvision plain VGG-16 ``features``, indices and all (convs
+    at 0, 2, 5, 7, 10, ...; a ``MaxPool2d`` ending each stage): the original
+    FCN8 slices it after the third and fourth pools. The first conv is
+    padded by 100 and the pools are ceil-mode, keeping their last partial
+    windows."""
+
+    def __init__(self, in_ch: int = 3):
+        layers = []
+        for widths in VGG16_STAGES:
+            for w in widths:
+                layers += [conv2d(in_ch, w, 3, padding=1 if layers else 100, bias=True),
+                           nn.ReLU(inplace=True)]
+                in_ch = w
+            layers.append(nn.MaxPool2d(2, 2, ceil_mode=True))
         super().__init__(*layers)
 
 

@@ -1,8 +1,12 @@
-"""PSPNet with the encoding-style dilated ResNet backbone.
+"""PSPNet with the encoding-style dilated ResNet backbone, and PSPDenseNet.
 
-Counterpart of ``segtpu/models/pspnet.py::PSPNet``: PSP bins (1, 2, 3, 6),
+Counterpart of ``segtpu/models/pspnet.py``. PSPNet: PSP bins (1, 2, 3, 6),
 the aux head on layer3, and a final bilinear upsample without
 ``align_corners``. Both dropouts are elementwise ``p=0.1``, as segtpu's.
+PSPDenseNet: the same head on the dilated DenseNet of
+``backbones/densenet.py`` (DenseNet-201 by default), its aux head on
+transition3's output with a hidden width of a quarter of the backbone's
+output (480 for DenseNet-201, whose transition3 gives 896 channels).
 
 Inputs and logits are NCHW. ``forward`` returns ``{"out": logits}`` and, in
 train mode with ``use_aux``, ``"aux"`` too. Parameter names follow the
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from segtpu_torch.backbones import densenet
 from segtpu_torch.backbones.resnet import ResNetFeatures, run_features
 from segtpu_torch.nn.blocks import PSPModule
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
@@ -77,4 +82,45 @@ class PSPNet(FreezableBN):
         result = {"out": out}
         if self.use_aux and self.training:
             result["aux"] = resize_bilinear(self.auxiliary_branch(feats[2]), size)
+        return result
+
+
+class PSPDenseNet(FreezableBN):
+    """The PSP head on ``backbones/densenet.py``'s dilated DenseNet, with
+    the original's top-level names (``block0``-``block4``,
+    ``transition1``-``transition3``, ``master_branch``,
+    ``auxiliary_branch``), so ``segtpu.utils.weight_convert.
+    convert_pspdensenet`` reads this model's ``state_dict()``.
+    ``remat_backbone`` checkpoints each dense layer (segtpu's per-dense-layer
+    remat); it changes neither the gradients nor the running statistics."""
+
+    backbone_modules = densenet.DenseNetFeatures.module_names
+
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 backbone: str = "densenet201", pretrained: bool = False,
+                 use_aux: bool = True, freeze_bn: bool = False,
+                 remat_backbone: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if pretrained:
+            raise NotImplementedError(
+                "PSPDenseNet(pretrained=True) is not ported yet (ROADMAP)")
+        self.freeze_bn = freeze_bn
+        feats = densenet.DenseNetFeatures(backbone, in_channels, remat_layers=remat_backbone)
+        for name in self.backbone_modules:
+            setattr(self, name, getattr(feats, name))
+        m_out = feats.out_channels
+        self.master_branch = nn.Sequential(PSPModule(m_out, (1, 2, 3, 6)),
+                                           _classifier(m_out // 4, num_classes))
+        self.use_aux = use_aux
+        if use_aux:
+            self.auxiliary_branch = _AuxBranch(feats.aux_channels, m_out // 4, num_classes)
+        init_parameters(self, generator)
+
+    def forward(self, x):
+        size = x.shape[-2:]
+        y, x_aux = densenet.run_features(self, x)
+        result = {"out": resize_bilinear(self.master_branch(y), size)}
+        if self.use_aux and self.training:
+            result["aux"] = resize_bilinear(self.auxiliary_branch(x_aux), size)
         return result

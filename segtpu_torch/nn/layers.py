@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -72,13 +73,15 @@ def _transposed(init: Init) -> Init:
 def conv_transpose2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                      padding: int = 0, bias: bool = True,
                      weight_init: Init = torch_conv_kernel_init,
-                     bias_init=torch_conv_bias_init) -> nn.ConvTranspose2d:
+                     bias_init=torch_conv_bias_init,
+                     output_padding: int = 0) -> nn.ConvTranspose2d:
     """``nn.ConvTranspose2d`` with segtpu's ``ConvTranspose`` initializers
     for :func:`init_parameters`: the weight's fan-in is ``k*k*in``, the
     bias's ``k*k*out``, as segtpu draws them. The weight is torch's (in,
     out, k, k); segtpu's converter maps it to HWIO without a flip, and
     segtpu flips it when it runs the conv."""
-    conv = nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+    conv = nn.ConvTranspose2d(in_ch, out_ch, kernel_size, stride, padding,
+                              output_padding, bias=bias)
     conv.weight_init = _transposed(weight_init)
     conv.bias_init = bias_init
     return conv
@@ -134,3 +137,15 @@ class ConvBNAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
+
+
+def bilinear_kernel(channels: int, k: int) -> torch.Tensor:
+    """The original's ``get_upsampling_weight``: a k x k bilinear filter on
+    the diagonal of a (channels, channels, k, k) transposed-conv weight."""
+    factor = (k + 1) // 2
+    center = factor - 1 if k % 2 == 1 else factor - 0.5
+    og = np.ogrid[:k, :k]
+    filt = (1 - abs(og[0] - center) / factor) * (1 - abs(og[1] - center) / factor)
+    w = np.zeros((channels, channels, k, k), dtype=np.float32)
+    w[range(channels), range(channels)] = filt
+    return torch.from_numpy(w)

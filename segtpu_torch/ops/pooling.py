@@ -1,13 +1,14 @@
 """Pooling on NCHW tensors, with torch semantics.
 
 Counterpart of ``segtpu/ops/pooling.py``: the ResNet stem's 3x3/2/pad-1 max
-pool, UNet's ceil-mode pools, the PSP pyramid's adaptive average pools, and
-the argmax pools and unpools of SegNet and SegResNet. segtpu re-derived
-these as TPU matmuls, one-hot expands and compare/select planes; here they
-are torch's own pooling, which defines the semantics segtpu reproduces (bin
-i of an adaptive pool covers ``[floor(i*in/out), ceil((i+1)*in/out))``; the
-first row-major maximum of a window wins), except :func:`max_unpool_flat`,
-whose winner torch's CUDA kernel leaves to a race.
+pool, UNet's and ENet's ceil-mode pools, the PSP pyramid's adaptive average
+pools, and the argmax pools and unpools of SegNet, SegResNet and ENet.
+segtpu re-derived these as TPU matmuls, one-hot expands and compare/select
+planes; here they are torch's own pooling, which defines the semantics
+segtpu reproduces (bin i of an adaptive pool covers ``[floor(i*in/out),
+ceil((i+1)*in/out))``; the first row-major maximum of a window wins),
+except :func:`max_unpool_flat`, whose winner torch's CUDA kernel leaves to
+a race.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ def adaptive_avg_pool_multi(x: torch.Tensor, sizes: Sequence) -> List[torch.Tens
 
 def max_pool_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """2x2/stride-2 max pool that also returns where each maximum came from
-    (SegNet's encoder). Odd edges keep a last partial window, as segtpu's
-    -inf padding does. The indices are torch's, flat positions in the
-    input plane for :func:`max_unpool`; segtpu's are positions inside the
-    window, so only the pooled and unpooled values compare."""
+    (SegNet's encoder, ENet's downsampling blocks). Odd edges keep a last
+    partial window, as segtpu's -inf padding does. The indices are torch's,
+    flat positions in the input plane for :func:`max_unpool`; segtpu's are
+    positions inside the window, so only the pooled and unpooled values
+    compare."""
     return F.max_pool2d(x, 2, 2, ceil_mode=True, return_indices=True)
 
 

@@ -3,7 +3,9 @@
 The inverses of ``segtpu/utils/weight_convert.py::convert_pspnet``,
 ``convert_upernet``, ``convert_deeplab_xception``,
 ``convert_deeplab_resnet``, ``convert_duc_hdc``, ``convert_unet``,
-``convert_unet_resnet``, ``convert_segnet`` and ``convert_segresnet`` (with
+``convert_unet_resnet``, ``convert_segnet``, ``convert_segresnet``,
+``convert_enet``, ``convert_gcn`` (and the ResnetGCN backbone, which segtpu
+does not convert), ``convert_fcn8`` and ``convert_pspdensenet`` (with
 their ``convert_resnet`` and ``convert_xception``): segtpu's ``params`` and
 ``batch_stats`` (nested dicts of arrays, HWIO kernels) become a state dict
 in the original torch repo's layout (OIHW kernels), which the port's model
@@ -16,6 +18,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from segtpu_torch.backbones import vgg
+from segtpu_torch.nn.layers import bilinear_kernel
 
 
 def _t(a) -> torch.Tensor:
@@ -44,11 +49,11 @@ def _bn(sd, prefix, p, s):
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _resnet(sd, params, stats, prefix="", initial="initial"):
+def _resnet(sd, params, stats, prefix="", initial="initial", layers=(1, 2, 3, 4)):
     """segtpu ResNetFeatures variables under ``<prefix><initial>.*`` /
     ``<prefix>layerX.*``: the original PSPNet's keys with no prefix,
     UperNet's with ``"backbone."``, DeepLab's with ``"backbone."`` and its
-    stem under ``layer0``."""
+    stem under ``layer0``; only the ResNet ``layers`` named."""
     init = f"{prefix}{initial}"
     if "stem_conv2" in params:  # deep base: initial.0 is a Sequential
         _conv(sd, f"{init}.0.0", params["stem_conv1"])
@@ -59,7 +64,7 @@ def _resnet(sd, params, stats, prefix="", initial="initial"):
     else:
         _conv(sd, f"{init}.0", params["stem_conv1"])
     _bn(sd, f"{init}.1", params["stem_bn"], stats["stem_bn"])
-    for li in range(1, 5):
+    for li in layers:
         bi = 0
         while f"layer{li}_{bi}" in params:
             p, s = params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"]
@@ -92,6 +97,13 @@ def pspnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, 
     ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
     _resnet(sd, params["backbone"], batch_stats["backbone"])
+    _psp_head(sd, params, batch_stats)
+    return sd
+
+
+def _psp_head(sd, params, batch_stats):
+    """PSPNet's and PSPDenseNet's ``master_branch`` and, where present,
+    ``auxiliary_branch``."""
     _psp(sd, "master_branch.0", params["psp"], batch_stats["psp"])
     _conv(sd, "master_branch.1", params["classifier"])
     if "aux_branch" in params:
@@ -99,7 +111,6 @@ def pspnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, 
         _conv(sd, "auxiliary_branch.0", aux_p["conv"])
         _bn(sd, "auxiliary_branch.1", aux_p["bn"], aux_s["bn"])
         _conv(sd, "auxiliary_branch.4", aux_p["classifier"])
-    return sd
 
 
 def upernet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
@@ -316,4 +327,136 @@ def segresnet_state_dict_from_segtpu(params: Dict, batch_stats: Dict
                transposed=si < 3)
     _conv_t(sd, "last_conv.0", params["last_up"])
     _conv(sd, "last_conv.1", params["classifier"])
+    return sd
+
+
+def _prelu(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["alpha"])
+
+
+def enet_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu ENet ``(params, batch_stats)`` -> the port's ``state_dict``:
+    ``initial.*``, ``bottleneckNM.*`` (the upsampling blocks' ``spatil_conv``
+    and transposed ``conv2``, the asymmetric pair at ``conv2.{0,1,2,3}``, a
+    PReLU's slope where the block has one) and the transposed
+    ``fullconv``."""
+    sd: Dict[str, torch.Tensor] = {}
+    p, s = params["initial"], batch_stats["initial"]
+    _conv(sd, "initial.conv", p["conv"])
+    _bn(sd, "initial.bn", p["bn"], s["bn"])
+    _prelu(sd, "initial.prelu", p["prelu"])
+    for name in sorted(k for k in params if k.startswith("bottleneck")):
+        p, s = params[name], batch_stats[name]
+        upsample = "spatial_conv" in p
+        if upsample:
+            _conv(sd, f"{name}.spatil_conv", p["spatial_conv"])
+            _bn(sd, f"{name}.bn_up", p["bn_up"], s["bn_up"])
+        if "conv2a" in p:
+            _conv(sd, f"{name}.conv2.0", p["conv2a"])
+            _bn(sd, f"{name}.conv2.1", p["bn2a"], s["bn2a"])
+            if "prelu2a" in p:
+                _prelu(sd, f"{name}.conv2.2", p["prelu2a"])
+            _conv(sd, f"{name}.conv2.3", p["conv2b"])
+        else:
+            (_conv_t if upsample else _conv)(sd, f"{name}.conv2", p["conv2"])
+        _conv(sd, f"{name}.conv1", p["conv1"])
+        _conv(sd, f"{name}.conv3", p["conv3"])
+        for bn in ("bn1", "bn2", "bn3"):
+            _bn(sd, f"{name}.{bn}", p[bn], s[bn])
+        for act in ("prelu1", "prelu2", "prelu3", "prelu_out"):
+            if act in p:
+                _prelu(sd, f"{name}.{act}", p[act])
+    _conv_t(sd, "fullconv", params["fullconv"])
+    return sd
+
+
+def gcn_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu GCN ``(params, batch_stats)``, either backbone, -> the port's
+    ``state_dict``: ``backbone.initial``/``backbone.layerX``,
+    ``gcnN.conv{11,12,21,22}``, ``brN.conv{1,2}``, the transposed ``deconN``
+    where present, ``final_conv``. The ResnetGCN backbone's GCN layers go
+    under ``backbone.layer{3,4}.M.{gcn.*,conv1x1,bn1x1,downsample.{0,1}}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    resnet_gcn = "gcn" in bp["layer3_0"]
+    _resnet(sd, bp, bs, prefix="backbone.", layers=(1, 2) if resnet_gcn else (1, 2, 3, 4))
+    for li in (3, 4) if resnet_gcn else ():
+        bi = 0
+        while f"layer{li}_{bi}" in bp:
+            p, s, t = bp[f"layer{li}_{bi}"], bs[f"layer{li}_{bi}"], f"backbone.layer{li}.{bi}"
+            for name in ("11", "12", "21", "22"):
+                _conv(sd, f"{t}.gcn.conv{name}", p["gcn"][f"conv{name}"])
+                _bn(sd, f"{t}.gcn.bn{name}", p["gcn"][f"bn{name}"], s["gcn"][f"bn{name}"])
+            _conv(sd, f"{t}.conv1x1", p["conv1x1"])
+            _bn(sd, f"{t}.bn1x1", p["bn1x1"], s["bn1x1"])
+            if "downsample_conv" in p:
+                _conv(sd, f"{t}.downsample.0", p["downsample_conv"])
+                _bn(sd, f"{t}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+            bi += 1
+    for i in range(1, 5):
+        for name in ("conv11", "conv12", "conv21", "conv22"):
+            _conv(sd, f"gcn{i}.{name}", params[f"gcn{i}"][name])
+    for i in range(1, 10):
+        for name in ("conv1", "conv2"):
+            _conv(sd, f"br{i}.{name}", params[f"br{i}"][name])
+    for i in range(1, 6):
+        if f"decon{i}" in params:
+            _conv_t(sd, f"decon{i}", params[f"decon{i}"])
+    _conv(sd, "final_conv", params["final_conv"])
+    return sd
+
+
+def fcn8_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """segtpu FCN8 ``(params, batch_stats)`` -> the port's ``state_dict``:
+    segtpu's VGG ``backbone`` stages at their torchvision ``features``
+    indices, sliced as the original's ``pool3``/``pool4``/``pool5`` (after
+    the third and fourth pools); ``backbone_conv6``, ``backbone_conv7`` and
+    ``backbone_score`` at ``output.{0,3,6}``; ``adj_pool3``, ``adj_pool4``;
+    and the fixed bilinear kernels, which segtpu does not store."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp = params["backbone"]
+    name, start, index = "pool3", 0, 0
+    for si, widths in enumerate(vgg.VGG16_STAGES):
+        for ci in range(len(widths)):
+            _conv(sd, f"{name}.{index - start}", bp[f"stage{si + 1}"][f"conv{ci}"])
+            index += 2  # the conv and its ReLU
+        index += 1  # the stage's pool
+        if si in (2, 3):  # the original slices after the third and fourth pools
+            name, start = f"pool{si + 2}", index
+    for key, t in (("backbone_conv6", "output.0"), ("backbone_conv7", "output.3"),
+                   ("backbone_score", "output.6"), ("adj_pool3", "adj_pool3"),
+                   ("adj_pool4", "adj_pool4")):
+        _conv(sd, t, params[key])
+    classes = np.asarray(params["backbone_score"]["kernel"]).shape[-1]
+    for t, k in (("up_output", 4), ("up_pool4_out", 4), ("up_final", 16)):
+        sd[f"{t}.weight"] = _t(bilinear_kernel(classes, k).numpy())
+    return sd
+
+
+def pspdensenet_state_dict_from_segtpu(params: Dict, batch_stats: Dict
+                                       ) -> Dict[str, torch.Tensor]:
+    """segtpu PSPDenseNet ``(params, batch_stats)`` -> the port's
+    ``state_dict``: the from-scratch stem at ``block0.{0,1,3,4,6,7}``,
+    ``blockN.denselayerM.{norm1,conv1,norm2,conv2}``,
+    ``transition1.{norm,conv}``, ``transition{2,3}.{0,2}``, and the head and
+    aux head under PSPNet's keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    for i in range(3):
+        _conv(sd, f"block0.{3 * i}", bp[f"stem_conv{i}"])
+        _bn(sd, f"block0.{3 * i + 1}", bp[f"stem_bn{i}"], bs[f"stem_bn{i}"])
+    for bi in range(1, 5):
+        p, s = bp[f"denseblock{bi}"], bs[f"denseblock{bi}"]
+        li = 1
+        while f"denselayer{li}" in p:
+            lp, ls, t = p[f"denselayer{li}"], s[f"denselayer{li}"], f"block{bi}.denselayer{li}"
+            for norm, conv in (("norm1", "conv1"), ("norm2", "conv2")):
+                _bn(sd, f"{t}.{norm}", lp[norm], ls[norm])
+                _conv(sd, f"{t}.{conv}", lp[conv])
+            li += 1
+    for i, (norm, conv) in ((1, ("norm", "conv")), (2, ("0", "2")), (3, ("0", "2"))):
+        p, s = bp[f"transition{i}"], bs[f"transition{i}"]
+        _bn(sd, f"transition{i}.{norm}", p["norm"], s["norm"])
+        _conv(sd, f"transition{i}.{conv}", p["conv"])
+    _psp_head(sd, params, batch_stats)
     return sd

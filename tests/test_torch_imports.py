@@ -50,15 +50,26 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
-#: the losses, optimizer and DeepLab slice's modules, and what each must
-#: define, imported alone
+#: the losses, optimizer and DeepLab slice's modules and the last zoo
+#: slice's, and what each must define, imported alone
 SLICE_MODULES = {
     "segtpu_torch.losses": ("LOSSES", "lovasz_softmax", "lovasz_softmax_binned",
                             "lovasz_hinge", "binary_xloss", "get_weights"),
     "segtpu_torch.ops.lovasz_hist": ("histograms_compare", "histograms_onehot"),
     "segtpu_torch.backbones.xception": ("XceptionBlock", "XceptionFeatures"),
     "segtpu_torch.models.deeplabv3_plus": ("DeepLab", "DeepLabDecoder"),
-    "segtpu_torch.utils.weight_convert": ("deeplab_state_dict_from_segtpu",),
+    "segtpu_torch.utils.weight_convert": ("deeplab_state_dict_from_segtpu",
+                                          "enet_state_dict_from_segtpu",
+                                          "gcn_state_dict_from_segtpu",
+                                          "fcn8_state_dict_from_segtpu",
+                                          "pspdensenet_state_dict_from_segtpu"),
+    # the last zoo slice's modules
+    "segtpu_torch.models.enet": ("ENet", "Bottleneck", "InitialBlock"),
+    "segtpu_torch.models.gcn": ("GCN", "GCNBlock", "BRBlock", "BottleneckGCN", "ResnetGCN"),
+    "segtpu_torch.models.fcn": ("FCN8", "FixedUpsample"),
+    "segtpu_torch.backbones.densenet": ("DENSENET_CONFIG", "DenseLayer", "DenseBlock",
+                                        "DenseNetFeatures"),
+    "segtpu_torch.ops.shape": ("pad_or_crop_tl",),
 }
 
 

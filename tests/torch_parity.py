@@ -22,6 +22,7 @@ from segtpu import losses as seg_losses
 from segtpu.models.pspnet import PSPNet as SegtpuPSPNet
 from segtpu.models.upernet import UperNet as SegtpuUperNet
 from segtpu.nn import blocks as seg_blocks
+from segtpu.ops import pooling as seg_pooling
 from segtpu.ops import resize as seg_resize
 from segtpu_torch.models.pspnet import PSPNet
 from segtpu_torch.models.upernet import UperNet
@@ -66,13 +67,13 @@ def _perturb_bn(params, stats, rng):
 
 def _init_segtpu(model, hw: int, seed: int):
     """(model, params, batch_stats) as numpy trees, with BN moved off its
-    init."""
+    init; a model without BN (FCN8) has empty batch_stats."""
     key = jax.random.PRNGKey(seed)
     variables = jax.jit(lambda k, x: model.init(
         {"params": k, "dropout": k}, x, train=False))(
             key, jnp.zeros((1, hw, hw, 3), jnp.float32))
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    params, stats = _perturb_bn(variables["params"], variables["batch_stats"],
+    params, stats = _perturb_bn(variables["params"], variables.get("batch_stats", {}),
                                 np.random.default_rng(seed))
     return model, params, stats
 
@@ -105,10 +106,10 @@ def port_pspnet(params, stats, backbone: str, num_classes: int, **kwargs) -> PSP
 
 def no_dropout(model: torch.nn.Module) -> torch.nn.Module:
     """Dropout's random bits cannot match between the frameworks: the
-    train-mode parity tests set p=0 here and make flax's Dropout the
-    identity on the segtpu side."""
+    train-mode parity tests set p=0 here (elementwise and channel dropout
+    alike) and make flax's Dropout the identity on the segtpu side."""
     for m in model.modules():
-        if isinstance(m, torch.nn.Dropout):
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
             m.p = 0.0
     return model
 
@@ -139,7 +140,8 @@ class _Float64:
 def segtpu_float64():
     """segtpu in float64: x64 on, and the float32 casts on the models' paths
     made float64 (the losses' logits, ASPP's image-pool mean, the resize
-    matrices); dropout is the identity. Nothing in segtpu changes."""
+    matrices, the average pool's sums and the adaptive pool's matrices);
+    dropout is the identity. Nothing in segtpu changes."""
     prev = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", True)
     with pytest.MonkeyPatch.context() as mp:
@@ -147,6 +149,10 @@ def segtpu_float64():
         mp.setattr(seg_blocks, "jnp", _Float64(jnp))
         mp.setattr(seg_resize, "np", _Float64(np))
         mp.setattr(seg_resize, "_linear_matrix_np", seg_resize._linear_matrix_np.__wrapped__)
+        mp.setattr(seg_pooling, "jnp", _Float64(jnp))
+        mp.setattr(seg_pooling, "np", _Float64(np))
+        mp.setattr(seg_pooling, "_adaptive_matrix_np",
+                   seg_pooling._adaptive_matrix_np.__wrapped__)
         mp.setattr(flax.linen, "Dropout", IdentityDropout)
         try:
             yield

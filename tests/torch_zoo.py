@@ -1,6 +1,7 @@
 """Shared checks of the zoo families' parity tests (tests/test_torch_duc_hdc.py,
-test_torch_unet.py, test_torch_segnet.py): the port's model against
-segtpu's on the same weights and inputs, on the CPU.
+test_torch_unet.py, test_torch_segnet.py, test_torch_enet.py,
+test_torch_gcn.py, test_torch_fcn.py, test_torch_pspdensenet.py): the
+port's model against segtpu's on the same weights and inputs, on the CPU.
 
 * eval-mode fp32 logits within TOL (1e-4) relative to the largest;
 * train-mode logits and running statistics in float64 within TOL64 (1e-8):
@@ -78,8 +79,9 @@ def assert_eval_matches(seg_model, params, stats, port, x):
     return got["out"]
 
 
-def assert_train_matches64(seg_model, params, stats, port, convert, x):
-    """Train-mode logits and running statistics, float64 on both sides."""
+def assert_train_matches64(seg_model, params, stats, port, convert, x, has_bn=True):
+    """Train-mode logits and running statistics, float64 on both sides; a
+    model without BN (``has_bn`` false: FCN8) has no running statistic."""
     x = x.astype(np.float64)
     with segtpu_float64():
         want, mutated = jax.jit(functools.partial(
@@ -97,7 +99,7 @@ def assert_train_matches64(seg_model, params, stats, port, convert, x):
         if "running_" in k:
             assert rel_max(v.numpy(), want_sd[k].numpy()) < TOL64, k
             n += 1
-    assert n > 0
+    assert n > 0 if has_bn else n == 0
 
 
 def assert_round_trip(params, stats, port, seg_converter, **kwargs):
@@ -135,10 +137,10 @@ def assert_freeze_bn_matches(seg_model, params, stats, port, x, monkeypatch):
     """Train mode with ``freeze_bn``: segtpu's logits, and no running
     statistic moves; dropout is the identity on both sides."""
     monkeypatch.setattr(flax.linen, "Dropout", IdentityDropout)
-    want, _ = seg_model.apply({"params": params, "batch_stats": stats},
-                              jnp.asarray(x), train=True,
-                              rngs={"dropout": jax.random.PRNGKey(0)},
-                              mutable=["batch_stats"])
+    want, _ = jax.jit(functools.partial(seg_model.apply, train=True,
+                                        mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x),
+        rngs={"dropout": jax.random.PRNGKey(0)})
     port = no_dropout(port).train()
     before = {k: v.clone() for k, v in port.state_dict().items()}
     got = port(nchw(x))
@@ -164,7 +166,12 @@ def trajectories(seg_model, params, stats, port, convert, classes, data):
     """segtpu's and the port's (loss, state dict) before (loss None) and
     after each SGD update on ``data``, float64 on both sides, in the port's
     layout."""
-    port = no_dropout(port).double()
+    return (segtpu_trajectory(seg_model, params, stats, convert, classes, data),
+            port_trajectory(port, data))
+
+
+def segtpu_trajectory(seg_model, params, stats, convert, classes, data):
+    """segtpu's half of :func:`trajectories`."""
     with segtpu_float64():
         params, stats = jax.tree_util.tree_map(
             lambda a: jnp.asarray(a, jnp.float64), (params, stats))
@@ -180,6 +187,12 @@ def trajectories(seg_model, params, stats, port, convert, classes, data):
                                     jax.random.PRNGKey(0))
             p, s = jax.tree_util.tree_map(np.asarray, (jstate.params, jstate.batch_stats))
             seg_snaps.append((np.asarray(loss), state_dict64(convert, p, s)))
+    return seg_snaps
+
+
+def port_trajectory(port, data):
+    """The port's half of :func:`trajectories`."""
+    port = no_dropout(port).double()
     opt, scheds = make_optimizer(port, **SGD)
     assert len(opt.param_groups) == 2
     state = TrainState(port, opt, scheds)
@@ -189,7 +202,7 @@ def trajectories(seg_model, params, stats, port, convert, classes, data):
         loss, _ = step(state, torch.from_numpy(imgs), torch.from_numpy(labels))
         port_snaps.append((loss.numpy(), {k: v.clone() for k, v in
                                           port.state_dict().items()}))
-    return seg_snaps, port_snaps
+    return port_snaps
 
 
 def assert_step_matches(seg_snaps, port_snaps, n_steps):
