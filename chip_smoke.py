@@ -5,7 +5,8 @@
 
 Phases, each announced on its own line:
 
-1. device: the card's name and power limit (nvidia-smi), versions, TF32 off;
+1. device: the card's name and power limit (nvidia-smi), versions, TF32 off,
+   whether the card's Python imports tensorboardX and tensorboard;
 2. build: every hand-written kernel from the sources in the checkout, one
    nvcc each, all started together;
 3. kernel against plain: each kernel's wrapper on the card, at the main
@@ -138,9 +139,25 @@ Phases, each announced on its own line:
     loader; the repo's ``config.json`` (only data_dir, save_dir and epochs
     set) trained for 5 steps and its validation on a view of the tree; the
     inference CLI, sliding bf16, on one frame with the 769 run's best_model;
-17. the ``kernels`` JSON line (each kernel's launches on every path above),
-    then the card's name and power limit, then ``{"ok": true, "device":
-    {...}}`` as the last line.
+    every run writes its tensorboard events into the work directory;
+17. pretrained encoders: a seeded encoding-style resnet50s.pth in the work
+    directory, and PSPNet-R50 trained from it through
+    ``segtpu_torch.train.main`` with the main path's flags, tensorboard and
+    ``profile: 2``: before its first step the backbone equals the file and
+    the rest a model built from the same seed, bit for bit; one stem launch
+    a step; the load time; the timed ms/step beside the main path's; the
+    event file read back (framing, both CRCs, tags and steps, the logged
+    losses against the steps'); the val grid's write time at one row and at
+    15 rows (11535x2307: PNG and CRC); the profile's Chrome trace naming the
+    stem kernel. PSPDenseNet-201 from a seeded densenet201.pth on the 7x7
+    stem: the same state check, ms/step and peak memory beside the
+    from-scratch stem's. Then one seeded file per remaining family
+    (UperNet-R101, SegNet, FCN8 with FC6/FC7, DeepLab-Xception,
+    GCN-ResnetGCN-R50 from a plain ResNet-50 file, SegResNet) loaded into
+    the model on the card, bit for bit, with its load seconds;
+18. the script's time, the ``kernels`` JSON line (each kernel's launches on
+    every path above), then the card's name and power limit, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and exits non-zero; without a GPU it exits non-zero
 before printing any result.
@@ -150,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import glob
 import json
 import math
 import os
@@ -159,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -347,7 +366,8 @@ def smoke_config(arch, save_dir, save_period=10, save_per_iters=0, steps=STEPS,
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": val,
                     "monitor": "max Mean_IoU", "compute_dtype": "bfloat16",
                     "save_dir": save_dir, "save_period": save_period,
-                    "save_per_iters": save_per_iters},
+                    "save_per_iters": save_per_iters,
+                    "log_dir": os.path.join(os.path.dirname(save_dir), "runs")},
     }
 
 
@@ -579,7 +599,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
         phase(f"main path: {label}, timed")
 
     val_images, val_labels = next(iter(DevicePrefetcher(trainer.val_loader, dev)))
-    loss, stats = trainer.eval_step(trainer.model, val_images, val_labels)
+    loss, stats, _ = trainer.eval_step(trainer.model, val_images, val_labels)
     correct, labeled = float(stats.correct), float(stats.labeled)
     check(math.isfinite(float(loss)), "non-finite eval loss")
     check(labeled == BATCH * CROP * CROP, f"labeled {labeled}")
@@ -1497,6 +1517,7 @@ def disk_phase(workdir, seed, card, recorder):
     for key in ("train_loader", "val_loader"):
         user[key]["args"]["data_dir"] = view
     user["trainer"]["save_dir"] = os.path.join(workdir, "saved_user")
+    user["trainer"]["log_dir"] = os.path.join(workdir, "runs_user")
     user["trainer"]["epochs"] = 5
     reset_launches()
     t0 = time.perf_counter()
@@ -1512,6 +1533,9 @@ def disk_phase(workdir, seed, card, recorder):
     check(trainer.state.step == 5 and math.isfinite(log["loss"])
           and "val_loss" in log and math.isfinite(log["val_loss"]),
           f"config.json's run: {trainer.state.step} steps, {log}")
+    check(trainer.writer is not None and trainer.writer.path.startswith(workdir)
+          and os.path.getsize(trainer.writer.path) > 0,
+          "config.json's run wrote no events into the work directory")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1995,6 +2019,277 @@ def conv_bound(label, conv, cats, card):
     return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+#: the "pretrained: load only" families: (label, model, args, the args of the
+#: model whose layout the file takes, when it is another's)
+PRETRAINED_LOAD_ONLY = [
+    ("UperNet-R101", "UperNet", {"backbone": "resnet101"}, None),
+    ("SegNet", "SegNet", {}, None),
+    ("FCN8", "FCN8", {}, None),
+    ("DeepLab-Xception", "DeepLab", {"backbone": "xception"}, None),
+    # a plain torchvision ResNet-50 file: its layer3/4 must be skipped
+    ("GCN-ResnetGCN-R50", "GCN", {"backbone": "resnet50", "use_resnet_gcn": True},
+     {"backbone": "resnet50"}),
+    ("SegResNet", "SegResNet", {}, None),
+]
+GRID_ROWS = 15  # the trainer's val grid at full size: 15 rows of 769 x 2307
+
+
+def write_seeded_pth(path, model, seed):
+    """A ``.pth`` in the original layout that ``model`` reads
+    (``pretrained.file_layout``), of seeded tensors (running variances in
+    [0.5, 1.5)); returns (the state dict, seconds to make and write it)."""
+    import torch
+
+    from segtpu_torch import pretrained
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, (_, shape) in sorted(pretrained.file_layout(model).items()):
+        sd[key] = (torch.rand(shape, generator=g) + 0.5 if key.endswith("running_var")
+                   else torch.randn(shape, generator=g) * 0.05)
+    torch.save(sd, path)
+    return sd, time.perf_counter() - t0
+
+
+def check_pretrained_state(label, state, sd, ref, model):
+    """``state`` (tensors on the card) holds the file's tensors where
+    ``model`` reads them, bit for bit, and ``ref``'s (the same seed, nothing
+    loaded) everywhere else; returns (tensors, parameters) loaded."""
+    import torch
+
+    from segtpu_torch import pretrained
+
+    fed = pretrained.remap(model, sd)
+    for target, (key, value) in fed.items():
+        got = state[target]
+        check(torch.equal(got, value.to(got.device).reshape(got.shape)),
+              f"{label}: {target} is not the file's {key}")
+    ref_sd = ref.state_dict()
+    kept = [k for k in state if k not in fed]
+    check(all(torch.equal(state[k], ref_sd[k]) for k in kept),
+          f"{label}: a tensor outside the file's is not its init")
+    params = dict(model.named_parameters())
+    n_params = sum(state[t].numel() for t in fed if t in params)
+    print(f"{label}: {len(fed)} tensors ({n_params:,} parameters) equal the file's bit "
+          f"for bit; the other {len(kept)} equal a model built from the same seed")
+    return len(fed), n_params
+
+
+def pretrained_phases(workdir, card, recorder, main_numbers, zoo_numbers):
+    """The pretrained encoders on the card. PSPNet-R50 from a seeded
+    encoding-style resnet50s.pth, trained through
+    ``segtpu_torch.train.main`` as the main path with tensorboard and
+    ``profile: 2``: its state before the first step against the file and
+    the init, one stem launch a step, the load time, its timed ms/step
+    against the main path's, the event file read back (framing, CRCs, tags,
+    steps, the losses), the val grid's write time at one row and at 15, the
+    profile's trace naming the stem kernel. PSPDenseNet-201 on the 7x7 stem
+    from a seeded densenet201.pth: the same state check, 2 steps, ms/step
+    and peak memory against the zoo's from-scratch stem. Then
+    ``pretrained_load_phase``. Returns (launches by path, numbers)."""
+    import numpy as np
+    import torch
+
+    from segtpu_torch import pretrained
+    from segtpu_torch import trainer as trainer_mod
+    from segtpu_torch.models import get_model
+    from segtpu_torch.utils import tensorboard as tb
+
+    root = os.path.join(workdir, "pretrained")
+    os.makedirs(root)
+    no_kernel = {"stem_conv_wgrad": 0, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}
+    launches, numbers = {}, {}
+    load_s, grid_s, viz_seen = [], [], []
+    load, write_grid = trainer_mod.maybe_load_pretrained, trainer_mod.Trainer._write_val_grid
+
+    def timed_load(model, config):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = load(model, config)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t)
+        return path
+
+    def timed_grid(self, viz, epoch):
+        t = time.perf_counter()
+        write_grid(self, viz, epoch)
+        grid_s.append(time.perf_counter() - t)
+        viz_seen.append((self, viz))
+
+    trainer_mod.maybe_load_pretrained = timed_load
+    trainer_mod.Trainer._write_val_grid = timed_grid
+    try:
+        phase("pretrained: PSPNet-R50")
+        label = "PSPNet-R50 pretrained"
+        args = {"backbone": "resnet50", "pallas_stem_wgrad": True, "pretrained": True}
+        ref = get_model("PSPNet", device="cuda", num_classes=CLASSES, **args)
+        plain = get_model("PSPNet", device="cuda", num_classes=CLASSES,
+                          **{**args, "pretrained": False})
+        check(all(torch.equal(v, plain.state_dict()[k]) for k, v in ref.state_dict().items()),
+              "PSPNet built with pretrained differs from one without")
+        del plain
+        sd, write_s = write_seeded_pth(os.path.join(root, "resnet50s.pth"), ref, 1)
+        print(f"resnet50s.pth (encoding deep base, seeded): {len(sd)} tensors, "
+              f"{os.path.getsize(os.path.join(root, 'resnet50s.pth')) / 1e6:.1f} MB, made "
+              f"and written in {write_s:.2f} s")
+        config = smoke_config({"type": "PSPNet", "args": args},
+                              os.path.join(workdir, "saved_pretrained"))
+        config["pretrained_dir"] = root
+        config["trainer"].update(tensorboard=True, profile=2)
+        recorder.snap_before = 0
+        trainer, launches[label], _, _, num = train_main_path(
+            label, config, {**no_kernel, "stem_conv_wgrad": STEPS}, card, recorder,
+            trace=False)
+        numbers[label] = num
+        check_pretrained_state(label, recorder.snap["model"], sd, ref, trainer.model)
+        numbers[label]["load_s"] = load_s[-1]
+        print(f"{label}: load of resnet50s.pth into the model on the card {load_s[-1]:.3f} s; "
+              f"train step {num['ms_per_step']:.1f} ms/step against the main path's "
+              f"{main_numbers['ms_per_step']:.1f} (same flags, no pretrained) [{card}]")
+
+        path = trainer.writer.path
+        t = time.perf_counter()
+        events = tb.read_events(path)
+        read_s = time.perf_counter() - t
+        grid_tag = "val/inputs_targets_predictions"
+        got = [(v["tag"], e["step"]) for e in events[1:] for v in e["values"]]
+        want = ([("train/loss", i + 1) for i in range(STEPS)]
+                + [(f"train/{k}", STEPS) for k in ("Pixel_Accuracy", "Mean_IoU",
+                                                   "Learning_rate_0", "Learning_rate_1")]
+                + [(grid_tag, 1)] + [(f"val/{k}", STEPS)
+                                     for k in ("loss", "Pixel_Accuracy", "Mean_IoU")])
+        check(events[0].get("file_version") == "brain.Event:2" and got == want,
+              f"{label}: events {got}")
+        losses = [v["simple_value"] for e in events[1:STEPS + 1] for v in e["values"]]
+        check(losses == [float(np.float32(r["loss"])) for r in recorder.steps],
+              f"{label}: logged losses {losses}, steps' {recorder.steps}")
+        image = next(v["image"] for e in events for v in e["values"] if "image" in v)
+        check((image["height"], image["width"], image["colorspace"]) == (CROP, 3 * CROP, 3),
+              f"{label}: val grid {image}")
+        numbers[label].update(events_bytes=os.path.getsize(path), events_read_s=read_s,
+                              grid_1row_s=grid_s[-1])
+        print(f"{label}: event file {os.path.getsize(path)} bytes, {len(events)} records, "
+              f"read back (CRCs checked) in {read_s:.3f} s; tags and steps {got[:1]}... "
+              f"as segtpu's; the val grid (1 row, {CROP}x{3 * CROP}) written in "
+              f"{grid_s[-1]:.3f} s")
+
+        # the grid at full size, 15 rows of the run's own val image
+        owner, viz = viz_seen[-1]
+        writer = tb.SummaryWriter(os.path.join(root, "grid15"))
+        fake = types.SimpleNamespace(val_loader=owner.val_loader, writer=writer)
+        t = time.perf_counter()
+        write_grid(fake, viz * GRID_ROWS, 1)
+        full_s = time.perf_counter() - t
+        writer.close()
+        png = next(v["image"]["png"] for e in tb.read_events(writer.path) for v in e["values"]
+                   if "image" in v)
+        t = time.perf_counter()
+        tb.crc32c(png)
+        crc_s = time.perf_counter() - t
+        numbers[label].update(grid_15row_s=full_s, grid_15row_png_bytes=len(png),
+                              grid_15row_crc_s=crc_s)
+        print(f"val grid at full size ({GRID_ROWS * CROP}x{3 * CROP}): written in "
+              f"{full_s:.3f} s, PNG {len(png) / 1e6:.1f} MB, its CRC-32C alone "
+              f"{crc_s:.3f} s (host)")
+
+        traces = glob.glob(os.path.join(trainer.checkpoint_dir, "profile", "*.json"))
+        check(len(traces) == 1, f"{label}: profile traces {traces}")
+        with open(traces[0]) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        stem = sum("stem_wgrad" in n for n in names)
+        numbers[label].update(trace_bytes=os.path.getsize(traces[0]), trace_stem_events=stem)
+        print(f"{label}: profile of 2 steps, {os.path.getsize(traces[0]) / 1e6:.1f} MB, "
+              f"{len(names)} events, {stem} of the stem kernel's")
+        check(stem >= 2, f"{label}: the profile names no stem kernel launch")
+        del trainer, ref, sd, events
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase("pretrained: PSPDenseNet-201")
+        label = "PSPDenseNet-201 pretrained"
+        args = {"backbone": "densenet201", "pretrained": True}
+        ref = get_model("PSPDenseNet", device="cuda", num_classes=CLASSES, **args)
+        sd, write_s = write_seeded_pth(os.path.join(root, "densenet201.pth"), ref, 2)
+        print(f"densenet201.pth (seeded): {len(sd)} tensors, made and written in "
+              f"{write_s:.2f} s")
+        config = smoke_config({"type": "PSPDenseNet", "args": args},
+                              os.path.join(workdir, "saved_pretrained"), steps=ZOO_STEPS,
+                              val=False)
+        config["pretrained_dir"] = root
+        trainer, launches[label], _, _, num = train_main_path(
+            label, config, no_kernel, card, recorder, trace=False)
+        numbers[label] = {**num, "load_s": load_s[-1]}
+        check(tuple(trainer.model.block0[0].weight.shape) == (64, 3, 7, 7),
+              f"{label}: stem {tuple(trainer.model.block0[0].weight.shape)}")
+        check_pretrained_state(label, recorder.snap["model"], sd, ref, trainer.model)
+        scratch = zoo_numbers["PSPDenseNet-201"]
+        print(f"{label}: 7x7 stem, load {load_s[-1]:.3f} s; {num['ms_per_step']:.1f} ms/step, "
+              f"peak {num['peak_gib']:.2f} GiB, against the from-scratch stem's "
+              f"{scratch['ms_per_step']:.1f} ms/step, {scratch['peak_gib']:.2f} GiB in this "
+              f"run [{card}]")
+        del trainer, ref, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        trainer_mod.maybe_load_pretrained = load
+        trainer_mod.Trainer._write_val_grid = write_grid
+        recorder.snap_before = None
+
+    numbers.update(pretrained_load_phase(root, card))
+    return launches, numbers
+
+
+def pretrained_load_phase(root, card):
+    """One seeded file per remaining family (PRETRAINED_LOAD_ONLY) written
+    into ``root`` and loaded into the model on the card: every tensor it
+    feeds equal to the file's bit for bit, the others to the seed's init;
+    FCN8's conv6 from FC6's 2-D weight, the ResnetGCN's layer3/4 skipped.
+    Returns the load numbers."""
+    import torch
+
+    from segtpu_torch import pretrained
+    from segtpu_torch.models import get_model
+
+    phase("pretrained: load only")
+    numbers = {}
+    for seed, (label, name, args, layout_args) in enumerate(PRETRAINED_LOAD_ONLY, start=3):
+        model = get_model(name, device="cuda", num_classes=CLASSES, pretrained=True, **args)
+        ref = get_model(name, device="cuda", num_classes=CLASSES, pretrained=True, **args)
+        source = model if layout_args is None else get_model(
+            name, device="cpu", num_classes=CLASSES, **layout_args)
+        cid = pretrained.checkpoint_id(model)
+        path = os.path.join(root, f"{cid}.pth")
+        sd, write_s = write_seeded_pth(path, source, seed)
+        del source
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        check(pretrained.maybe_load_pretrained(model, {"pretrained_dir": root}) == path,
+              f"{label}: not loaded from {path}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        n, n_params = check_pretrained_state(label, model.state_dict(), sd, ref, model)
+        fed = pretrained.remap(model, sd)
+        if name == "FCN8":
+            check(fed["output.0.weight"][0] == "classifier.0.weight"
+                  and sd["classifier.0.weight"].dim() == 2, "FCN8: conv6 not from FC6")
+        if layout_args is not None:
+            skipped = [k for k in sd if k.startswith(("layer3.", "layer4."))]
+            check(skipped and not any(t.startswith(("backbone.layer3.", "backbone.layer4."))
+                                      for t in fed), f"{label}: layer3/4 not skipped")
+            print(f"{label}: the file's {len(skipped)} layer3/4 tensors skipped")
+        numbers[f"{label} load"] = {"id": cid, "tensors": n, "params": n_params, "load_s": dt,
+                                    "file_bytes": os.path.getsize(path)}
+        print(f"pretrained: load only: {label} from {cid}.pth "
+              f"({os.path.getsize(path) / 1e6:.1f} MB, written in {write_s:.2f} s): "
+              f"{dt:.3f} s into the model on the card [{card}]")
+        os.remove(path)
+        del model, ref, sd, fed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Drive segtpu_torch on one GPU")
     parser.add_argument("--seed", type=int, default=0,
@@ -2008,12 +2303,12 @@ def main(argv=None):
         return 2
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        return run(args, workdir)
+        return run(args, workdir, time.perf_counter())
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def run(args, workdir):
+def run(args, workdir, t_start):
     import torch
 
     from segtpu_torch.ops import build
@@ -2030,6 +2325,11 @@ def run(args, workdir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32: matmul.allow_tf32=False, cudnn.allow_tf32=False")
+    for module in ("tensorboardX", "tensorboard"):  # the port writes events without either
+        found = subprocess.run([sys.executable, "-c", f"import {module}"], capture_output=True,
+                               text=True, timeout=120)
+        print(f"python3 -c 'import {module}': exit {found.returncode} "
+              f"{(found.stderr.strip().splitlines() or [''])[-1]}")
 
     phase("build")
     t0 = time.perf_counter()
@@ -2236,7 +2536,8 @@ def run(args, workdir):
             trainer, psp_config, recorder, workdir, card)
         resume["best"] = os.path.join(trainer.checkpoint_dir, "best_model")
 
-    trainer, psp_launches, (images, labels), (val_images, val_labels), _ = train_main_path(
+    (trainer, psp_launches, (images, labels), (val_images, val_labels),
+     psp_numbers) = train_main_path(
         "PSPNet-R50", psp_config,
         {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0, "flat_conv_dgrad": 0}, card,
         recorder, after_train=checkpoints)
@@ -2375,13 +2676,17 @@ def run(args, workdir):
     gc.collect()
     torch.cuda.empty_cache()
 
+    pre_launches, pre_numbers = pretrained_phases(workdir, card, recorder, psp_numbers,
+                                                  zoo_numbers)
+    print("pretrained: " + json.dumps(pre_numbers))
+
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
                  "are those of the flat_conv phase, 0 on every main path")
     paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
              "inference": infer_launches, "serving export": serve_launches,
              "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches,
-             **deeplab_launches, **zoo_launches,
+             **deeplab_launches, **zoo_launches, **pre_launches,
              "PSPNet-R50 optimizers and freezes (7 runs of 2 steps, 1 resumed step)":
                  opt_launches}
     stem_main = stem_times[0]
@@ -2408,6 +2713,8 @@ def run(args, workdir):
             "timings": flat_times[name],
             "in_step_max_abs_err": {k: v[idx] for k, v in in_step.items()},
             "main_path_launches": {k: v[name] for k, v in paths.items()}})
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of "
+          f"script time [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

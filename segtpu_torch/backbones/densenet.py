@@ -3,10 +3,11 @@
 Counterpart of ``segtpu/backbones/densenet.py``: torchvision's DenseNet
 blocks and transitions, transition2 and transition3 without their pools
 (output stride 8), denseblock3's 3x3 convs dilated 2 and denseblock4's
-dilated 4, and the from-scratch stem of the original PSPDenseNet: 3x3
-convs at stride 2, 1 and 1, all with padding 0, each with BN and ReLU, then
-a 3x3/2/1 max pool. The 7x7 stem that segtpu selects with
-``pretrained_stem`` waits on pretrained weights (ROADMAP).
+dilated 4. Two stems, as segtpu's ``pretrained_stem`` selects them: the
+from-scratch stem of the original PSPDenseNet (3x3 convs at stride 2, 1 and
+1, all with padding 0, each with BN and ReLU, then a 3x3/2/1 max pool), or
+torchvision's 7x7/2 conv (no bias), BN, ReLU and 3x3/2/1 max pool, which a
+pretrained DenseNet's ``features.conv0`` and ``norm0`` load into.
 
 ``remat_layers`` is segtpu's per-dense-layer ``nn.remat``: each dense layer
 runs under ``torch.utils.checkpoint`` (non-reentrant) and takes the
@@ -19,7 +20,8 @@ as segtpu's functional remat does.
 
 Module names follow torchvision (``denselayerN.{norm1,conv1,norm2,conv2}``,
 ``transition1.{norm,conv}``) and the original PSPDenseNet
-(``transition{2,3}.{0,2}``; the stem's convs at ``block0.{0,3,6}``).
+(``transition{2,3}.{0,2}``; the from-scratch stem's convs at
+``block0.{0,3,6}``, the 7x7 stem's conv and BN at ``block0.{0,1}``).
 """
 
 from __future__ import annotations
@@ -131,17 +133,26 @@ def scratch_stem(in_ch: int, width: int = 64) -> nn.Sequential:
     return nn.Sequential(*layers, nn.MaxPool2d(3, 2, 1))
 
 
+def torchvision_stem(in_ch: int, width: int) -> nn.Sequential:
+    """torchvision's DenseNet stem: a 7x7/2 conv with padding 3 and no bias,
+    BN, ReLU, then a 3x3/2/1 max pool (the conv at 0, the BN at 1)."""
+    return nn.Sequential(conv2d(in_ch, width, 7, 2, 3), batch_norm(width),
+                         nn.ReLU(inplace=True), nn.MaxPool2d(3, 2, 1))
+
+
 class DenseNetFeatures(nn.Module):
-    """``block0`` (the stem), ``block1``-``block4`` and ``transition1``-
+    """``block0`` (the stem: the 7x7 one with ``pretrained_stem``, else the
+    from-scratch one), ``block1``-``block4`` and ``transition1``-
     ``transition3``; ``forward`` returns (block4's output, transition3's
     output), PSPDenseNet's master and aux taps."""
 
     def __init__(self, arch: str = "densenet201", in_channels: int = 3,
-                 remat_layers: bool = False):
+                 remat_layers: bool = False, pretrained_stem: bool = False):
         super().__init__()
-        growth, blocks, _ = DENSENET_CONFIG[arch]
-        self.block0 = scratch_stem(in_channels, 64)
-        ch = 64
+        growth, blocks, stem = DENSENET_CONFIG[arch]
+        ch = stem if pretrained_stem else 64
+        self.block0 = (torchvision_stem(in_channels, ch) if pretrained_stem
+                       else scratch_stem(in_channels, ch))
         for bi, dilation in enumerate((1, 1, 2, 4)):
             block = DenseBlock(blocks[bi], ch, growth, dilation, remat_layers)
             setattr(self, f"block{bi + 1}", block)

@@ -77,8 +77,8 @@ def make_train_step(loss_fn: Callable, ignore_index: int = 255,
 def make_eval_step(loss_fn: Callable, ignore_index: int = 255,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    norm_stats=None):
-    """Returns ``step(model, images, labels) -> (loss, SegStats)`` in eval
-    mode, without gradients."""
+    """Returns ``step(model, images, labels) -> (loss, SegStats, logits)``
+    in eval mode, without gradients; the logits stay on the device."""
 
     @torch.no_grad()
     def step(model, images, labels):
@@ -86,6 +86,6 @@ def make_eval_step(loss_fn: Callable, ignore_index: int = 255,
         x = prep_images(images, norm_stats, compute_dtype)
         loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
                                      0.0, compute_dtype)
-        return loss, seg_stats_from_logits(logits, labels)
+        return loss, seg_stats_from_logits(logits, labels), logits
 
     return step

@@ -55,7 +55,13 @@ def seg_stats(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> Seg
 def seg_stats_from_logits(logits: torch.Tensor, target: torch.Tensor) -> SegStats:
     """Stats straight from (B, C, H, W) logits. The argmax is the first
     maximum, on the logits' own dtype (bf16 logits are compared as bf16)."""
-    return seg_stats(torch.argmax(logits, dim=1), target, logits.shape[1])
+    return eval_metrics(logits, target, logits.shape[1])
+
+
+def eval_metrics(logits: torch.Tensor, target: torch.Tensor, num_classes: int) -> SegStats:
+    """segtpu's ``eval_metrics``: the stats of the (B, C, H, W) logits'
+    argmax (``torch.argmax``, the first maximum), on the device."""
+    return seg_stats(torch.argmax(logits, dim=1), target, num_classes)
 
 
 def summarize(stats: SegStats) -> Dict[str, object]:

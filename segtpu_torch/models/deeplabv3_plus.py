@@ -16,7 +16,7 @@ Parameter names follow the original (``backbone.*``, ``ASSP.*``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -27,6 +27,7 @@ from segtpu_torch.nn.blocks import ASPP
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
                                     kaiming_normal_init, zeros_init)
 from segtpu_torch.ops.resize import resize_bilinear
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 class _ResNetBackbone(nn.Module):
@@ -83,16 +84,14 @@ class DeepLab(FreezableBN):
     backbone_modules = ("backbone",)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
-                 backbone: str = "xception", pretrained: bool = False,
+                 backbone: str = "xception", pretrained: Union[bool, str] = False,
                  output_stride: int = 16, freeze_bn: bool = False,
                  freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "DeepLab(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained, self.backbone_name = pretrained, backbone
         if "resnet" in backbone:
             self.backbone = _ResNetBackbone(backbone, output_stride, in_channels)
         else:
@@ -106,3 +105,17 @@ class DeepLab(FreezableBN):
         y, low_level = self.backbone(x)
         y = self.decoder(self.ASSP(y), low_level)
         return {"out": resize_bilinear(y, x.shape[-2:], align_corners=True)}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's ResNet, or DeepLab's aligned Xception, 2-D pointwise
+        weights read as 1x1 convs, with ``convert_xception``'s fallbacks for
+        the blocks and exit convs that the file lacks."""
+        if "resnet" in self.backbone_name:
+            return Layout(self.backbone_name, resnet_rules("backbone.layer0", "backbone."))
+        fallbacks = tuple((f"backbone.block{i}.", (f"block{i}.", "block11."))
+                          for i in range(12, 20)) + (
+            ("backbone.block20.", ("block20.", "block12.")),
+            ("backbone.bn4.", ("bn4.", "bn3.")),
+            ("backbone.conv5.", ("conv5.", "conv4.")),
+            ("backbone.bn5.", ("bn5.", "bn4.", "bn3.")))
+        return Layout("xception", [("backbone.", "")], fallbacks=fallbacks, reshape=True)

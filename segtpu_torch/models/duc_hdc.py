@@ -19,13 +19,14 @@ this model's ``state_dict()``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from segtpu_torch.models.deeplabv3_plus import DeepLabDecoder, _ResNetBackbone
 from segtpu_torch.nn.blocks import ASPP, DUC
 from segtpu_torch.nn.layers import FreezableBN, init_parameters
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 class DUCDecoder(DeepLabDecoder):
@@ -48,16 +49,14 @@ class DeepLab_DUC_HDC(FreezableBN):
     backbone_modules = ("backbone",)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
-                 backbone: str = "resnet101", pretrained: bool = False,
+                 backbone: str = "resnet101", pretrained: Union[bool, str] = False,
                  output_stride: int = 8, dilation_bigger: bool = False,
                  freeze_bn: bool = False, freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "DeepLab_DUC_HDC(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained, self.backbone_name = pretrained, backbone
         # the HDC plan fixes layer3/4's strides; output_stride picks the
         # stem's stride and ASPP's dilations
         self.backbone = _ResNetBackbone(
@@ -73,3 +72,7 @@ class DeepLab_DUC_HDC(FreezableBN):
         y, low_level = self.backbone(x)
         y = self.decoder(self.ASSP(y), low_level)
         return {"out": self.DUC_out(y)[..., :x.shape[-2], :x.shape[-1]]}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's ResNet."""
+        return Layout(self.backbone_name, resnet_rules("backbone.layer0", "backbone."))

@@ -29,7 +29,7 @@ model's ``state_dict()``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,7 @@ from torch import nn
 
 from segtpu_torch.backbones.vgg import VGG16Features
 from segtpu_torch.nn.layers import bilinear_kernel, conv2d, init_parameters
+from segtpu_torch.pretrained import Layout
 
 #: FC6's and FC7's width
 FC_WIDTH = 4096
@@ -60,12 +61,12 @@ class FCN8(nn.Module):
     #: VGG, FC6, FC7 and the score conv train at lr/10, as in segtpu's code
     backbone_modules = ("pool3", "pool4", "pool5", "output")
 
-    def __init__(self, num_classes: int, in_channels: int = 3, pretrained: bool = False,
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 pretrained: Union[bool, str] = False,
                  freeze_bn: bool = False, freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError("FCN8(pretrained=True) is not ported yet (ROADMAP)")
+        self.pretrained = pretrained
         # FCN8 has no BN; freeze_backbone is the optimizer's (core/state.py)
         features = list(VGG16Features(in_channels))
         pools = [i for i, m in enumerate(features) if isinstance(m, nn.MaxPool2d)]
@@ -94,3 +95,18 @@ class FCN8(nn.Module):
         adj3 = self.adj_pool3(0.0001 * pool3)
         up = self.up_final(adj3[..., 9:9 + up.shape[-2], 9:9 + up.shape[-1]] + up)
         return {"out": up[..., 31:31 + h, 31:31 + w]}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's VGG-16: ``features`` as the three slices keep it,
+        FC6 and FC7 (``classifier.0`` and ``.3``) as conv6 and conv7."""
+        rules, offset = [], 0
+        for name in ("pool3", "pool4", "pool5"):
+            part = getattr(self, name)
+            rules += [(f"{name}.{j}.", f"features.{offset + j}.") for j in range(len(part))]
+            offset += len(part)
+        rules += [("output.0.", "classifier.0."), ("output.3.", "classifier.3.")]
+        return Layout("vgg16", rules, skip=("classifier.6.",), reshape=True,
+                      required=("classifier.0.weight",),
+                      required_why="FC6 and FC7 (classifier.0 and classifier.3) become "
+                                   "conv6 and conv7, so FCN8 needs a full torchvision "
+                                   "vgg16 state dict")

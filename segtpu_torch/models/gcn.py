@@ -30,7 +30,7 @@ cite them (``layerN.M.gcn.{conv,bn}{11,12,21,22}``, ``conv1x1``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -41,6 +41,7 @@ from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transp
                                     torch_conv_bias_init, zeros_init)
 from segtpu_torch.ops.resize import resize_bilinear
 from segtpu_torch.ops.shape import pad_or_crop_tl
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 def _conv(in_ch, out_ch, k, padding=0, stride=1, bias=True,
@@ -146,17 +147,18 @@ class GCN(FreezableBN):
     #: segtpu's ``backbone`` scope: lr/10
     backbone_modules = ("backbone",)
 
-    def __init__(self, num_classes: int, in_channels: int = 3, pretrained: bool = False,
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 pretrained: Union[bool, str] = False,
                  use_resnet_gcn: bool = False, backbone: str = "resnet50",
                  use_deconv: bool = False, num_filters: int = 11, freeze_bn: bool = False,
                  freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError("GCN(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
         self.use_deconv = use_deconv
+        self.pretrained, self.backbone_name = pretrained, backbone
+        self.use_resnet_gcn = use_resnet_gcn
         if use_resnet_gcn:
             self.backbone = ResnetGCN(backbone, in_channels)
         else:
@@ -194,3 +196,11 @@ class GCN(FreezableBN):
             x1 = self.br7(x1 + x2)
             y = self.br9(resize_bilinear(self.br8(x1), (h, w), align_corners=True))
         return {"out": self.final_conv(y)}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's ResNet; with ``use_resnet_gcn`` a partial load of the
+        stem and layer1-2, whose layer3/4 are GCN blocks."""
+        if self.use_resnet_gcn:
+            return Layout(self.backbone_name,
+                          resnet_rules("backbone.initial", "backbone.", (1, 2)), partial=True)
+        return Layout(self.backbone_name, resnet_rules("backbone.initial", "backbone."))

@@ -17,7 +17,7 @@ reads this model's ``state_dict()`` and the original ``.pth`` files load.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -28,6 +28,7 @@ from segtpu_torch.nn.blocks import PSPModule
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
                                     kaiming_normal_init, zeros_init)
 from segtpu_torch.ops.resize import resize_bilinear
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 def _classifier(in_ch: int, num_classes: int) -> nn.Conv2d:
@@ -50,16 +51,14 @@ class PSPNet(FreezableBN):
     backbone_modules = ("initial", "layer1", "layer2", "layer3", "layer4")
 
     def __init__(self, num_classes: int, in_channels: int = 3,
-                 backbone: str = "resnet152", pretrained: bool = False,
+                 backbone: str = "resnet152", pretrained: Union[bool, str] = False,
                  use_aux: bool = True, freeze_bn: bool = False,
                  freeze_backbone: bool = False, pallas_stem_wgrad: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "PSPNet(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained, self.backbone_name = pretrained, backbone
         feats = ResNetFeatures(arch=backbone, style="encoding",
                                in_channels=in_channels,
                                pallas_stem_wgrad=pallas_stem_wgrad)
@@ -84,6 +83,10 @@ class PSPNet(FreezableBN):
             result["aux"] = resize_bilinear(self.auxiliary_branch(feats[2]), size)
         return result
 
+    def pretrained_layout(self) -> Layout:
+        """The encoding zoo's deep-base ResNet (``<backbone>s``)."""
+        return Layout(f"{self.backbone_name}s", resnet_rules("initial"))
+
 
 class PSPDenseNet(FreezableBN):
     """The PSP head on ``backbones/densenet.py``'s dilated DenseNet, with
@@ -97,16 +100,16 @@ class PSPDenseNet(FreezableBN):
     backbone_modules = densenet.DenseNetFeatures.module_names
 
     def __init__(self, num_classes: int, in_channels: int = 3,
-                 backbone: str = "densenet201", pretrained: bool = False,
+                 backbone: str = "densenet201", pretrained: Union[bool, str] = False,
                  use_aux: bool = True, freeze_bn: bool = False,
                  remat_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "PSPDenseNet(pretrained=True) is not ported yet (ROADMAP)")
         self.freeze_bn = freeze_bn
-        feats = densenet.DenseNetFeatures(backbone, in_channels, remat_layers=remat_backbone)
+        self.pretrained, self.backbone_name = pretrained, backbone
+        # a truthy pretrained selects torchvision's 7x7 stem, as in segtpu
+        feats = densenet.DenseNetFeatures(backbone, in_channels, remat_layers=remat_backbone,
+                                          pretrained_stem=bool(pretrained))
         for name in self.backbone_modules:
             setattr(self, name, getattr(feats, name))
         m_out = feats.out_channels
@@ -124,3 +127,14 @@ class PSPDenseNet(FreezableBN):
         if self.use_aux and self.training:
             result["aux"] = resize_bilinear(self.auxiliary_branch(x_aux), size)
         return result
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's DenseNet ``features``; transition2/3 are re-sliced
+        (norm at 0, conv at 2) and the final norm is not read."""
+        rules = [("block0.0.", "features.conv0."), ("block0.1.", "features.norm0.")]
+        rules += [(f"block{i}.", f"features.denseblock{i}.") for i in range(1, 5)]
+        rules += [("transition1.", "features.transition1.")]
+        for i in (2, 3):
+            rules += [(f"transition{i}.0.", f"features.transition{i}.norm."),
+                      (f"transition{i}.2.", f"features.transition{i}.conv.")]
+        return Layout(self.backbone_name, rules, skip=("classifier.", "features.norm5."))

@@ -23,7 +23,7 @@ read these models' ``state_dict()``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -32,6 +32,7 @@ from segtpu_torch.backbones.vgg import VGG16_STAGES, VGG16Stage, run_with_indice
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transpose2d,
                                     init_parameters, kaiming_normal_init, zeros_init)
 from segtpu_torch.ops.pooling import max_pool_argmax_flat, max_unpool, max_unpool_flat
+from segtpu_torch.pretrained import Layout
 
 #: SegNet's decoder stages, the reversed VGG stages with the channel step on
 #: each stage's last conv
@@ -42,15 +43,14 @@ class SegNet(FreezableBN):
     #: segtpu's VGG encoder is its ``backbone`` scope: lr/10
     backbone_modules = tuple(f"stage{i}_encoder" for i in range(1, 6))
 
-    def __init__(self, num_classes: int, in_channels: int = 3, pretrained: bool = False,
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 pretrained: Union[bool, str] = False,
                  freeze_bn: bool = False, freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "SegNet(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained = pretrained
         in_ch = in_channels
         for name, widths in zip(self.backbone_modules, VGG16_STAGES):
             setattr(self, name, VGG16Stage(in_ch, widths))
@@ -76,6 +76,16 @@ class SegNet(FreezableBN):
             idx, size = saved[len(saved) - 1 - si]
             y = getattr(self, f"stage{si + 1}_decoder")(max_unpool(y, idx, size))
         return {"out": y}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's VGG-16-BN ``features``: each stage's modules in
+        order, then the pool that the stage leaves out."""
+        rules, offset = [], 0
+        for name in self.backbone_modules:
+            stage = getattr(self, name)
+            rules += [(f"{name}.{j}.", f"features.{offset + j}.") for j in range(len(stage))]
+            offset += len(stage) + 1
+        return Layout("vgg16_bn", rules, skip=("classifier.",))
 
 
 class _Residual(nn.Module):
@@ -136,15 +146,14 @@ class SegResNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("first_conv", "encoder")
 
-    def __init__(self, num_classes: int, in_channels: int = 3, pretrained: bool = False,
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 pretrained: Union[bool, str] = False,
                  freeze_bn: bool = False, freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "SegResNet(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained = pretrained
         self.first_conv = nn.Sequential(conv2d(in_channels, 64, 7, 2, 3), batch_norm(64),
                                         nn.ReLU(inplace=True))
         layers, in_ch = [], 64
@@ -197,4 +206,9 @@ class SegResNet(FreezableBN):
             if wd % 2 != 0:
                 out = out[..., :, :-1]
         return {"out": out}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's ResNet-50."""
+        return Layout("resnet50", [("first_conv.0.", "conv1."), ("first_conv.1.", "bn1.")]
+                      + [(f"encoder.{i}.", f"layer{i + 1}.") for i in range(4)])
 

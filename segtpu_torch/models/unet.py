@@ -21,7 +21,7 @@ Parameter names follow the original (UNet: ``start_conv``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -31,6 +31,7 @@ from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transp
                                     init_parameters, kaiming_normal_init, zeros_init)
 from segtpu_torch.ops.pooling import max_pool
 from segtpu_torch.ops.resize import resize_bilinear
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 class X2Conv(nn.Sequential):
@@ -113,15 +114,13 @@ class UNetResnet(FreezableBN):
     backbone_modules = ("initial", "layer1", "layer2", "layer3", "layer4")
 
     def __init__(self, num_classes: int, in_channels: int = 3, backbone: str = "resnet50",
-                 pretrained: bool = False, freeze_bn: bool = False,
+                 pretrained: Union[bool, str] = False, freeze_bn: bool = False,
                  freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "UNetResnet(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained, self.backbone_name = pretrained, backbone
         feats = ResNetFeatures(arch=backbone, style="encoding", in_channels=in_channels)
         self.initial = feats.initial
         self.layer1, self.layer2 = feats.layer1, feats.layer2
@@ -157,3 +156,7 @@ class UNetResnet(FreezableBN):
         y = self.upconv5(self.conv5(y))
         y = resize_bilinear(y, x.shape[-2:], align_corners=True)
         return {"out": self.conv7(self.conv6(y))}
+
+    def pretrained_layout(self) -> Layout:
+        """The encoding zoo's deep-base ResNet (``<backbone>s``)."""
+        return Layout(f"{self.backbone_name}s", resnet_rules("initial"))

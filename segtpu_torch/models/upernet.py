@@ -17,7 +17,7 @@ model's ``state_dict()`` wherever the layout is the original's (see
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -27,6 +27,7 @@ from segtpu_torch.nn.blocks import FPNFuse, PSPModule
 from segtpu_torch.nn.layers import (FreezableBN, conv2d, init_parameters,
                                     kaiming_normal_init)
 from segtpu_torch.ops.resize import resize_bilinear
+from segtpu_torch.pretrained import Layout, resnet_rules
 
 
 class UperNet(FreezableBN):
@@ -34,17 +35,15 @@ class UperNet(FreezableBN):
     backbone_modules = ("backbone",)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
-                 backbone: str = "resnet101", pretrained: bool = False,
+                 backbone: str = "resnet101", pretrained: Union[bool, str] = False,
                  use_aux: bool = True, fpn_out: int = 256,
                  freeze_bn: bool = False, freeze_backbone: bool = False,
                  output_stride: int = 16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained:
-            raise NotImplementedError(
-                "UperNet(pretrained=True) is not ported yet (ROADMAP)")
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
         self.freeze_bn = freeze_bn
+        self.pretrained, self.backbone_name = pretrained, backbone
         # use_aux is accepted as segtpu accepts it, and has no effect
         self.backbone = ResNetFeatures(arch=backbone, style="torchvision",
                                        output_stride=output_stride,
@@ -61,3 +60,7 @@ class UperNet(FreezableBN):
         feats[-1] = self.PPN(feats[-1])
         y = self.head(self.FPN(feats))
         return {"out": resize_bilinear(y, x.shape[-2:], align_corners=False)}
+
+    def pretrained_layout(self) -> Layout:
+        """torchvision's ResNet."""
+        return Layout(self.backbone_name, resnet_rules("backbone.initial", "backbone."))

@@ -30,7 +30,8 @@ def main(config, device="cuda", resume=None):
     from segtpu_torch.models import get_model
     from segtpu_torch.ops.conv_wgrad import stem_conv_wgrad
     from segtpu_torch.ops.flatconv import flat_conv_dgrad, flat_conv_wgrad
-    from segtpu_torch.trainer import Trainer, setup_logging
+    from segtpu_torch.trainer import Trainer
+    from segtpu_torch.utils.logger import Logger, setup_logging
 
     device = resolve_device(device)
     logger = setup_logging()
@@ -46,7 +47,7 @@ def main(config, device="cuda", resume=None):
                       **arch.get("args", {}))
     logger.info(f"model: {type(model).__name__} on {device}")
     trainer = Trainer(model, config["loss"], config, train_loader, val_loader,
-                      device=device, resume=resume)
+                      device=device, resume=resume, train_logger=Logger())
     trainer.train()
     logging.getLogger("segtpu_torch.train").info("kernel launches: " + ", ".join(
         f"{fn.__name__}={fn.launches}"

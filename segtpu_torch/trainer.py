@@ -9,8 +9,16 @@ Each run writes ``<save_dir>/<name>/<timestamp>/``: ``config.json``,
 ``checkpoint-epoch{N}`` every ``save_period`` epochs, ``best_model`` when the
 monitored metric improved, and ``checkpoint-latest`` every
 ``save_per_iters`` iterations or on SIGTERM. A resume from a mid-epoch
-checkpoint replays the rest of the same epoch's batch order. Tensorboard,
-the val image grid and profiling are not ported yet (ROADMAP).
+checkpoint replays the rest of the same epoch's batch order.
+
+A model built with ``pretrained`` gets its encoder from a local ``.pth``
+file before any resume (``pretrained.py``). With ``tensorboard`` (the
+default), segtpu's events go to ``<log_dir>/<name>/<timestamp>/`` (log_dir
+``saved/runs`` by default; ``utils/tensorboard.py``): ``train/loss`` every
+``log_per_iter`` iterations, the epoch's train metrics and learning rates,
+the val metrics and the 15-row val grid of input, target and prediction.
+``profile: N`` traces the first N steps of the first epoch with
+``torch.profiler`` into ``<checkpoint dir>/profile/``, a Chrome trace.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from segtpu_torch import losses as loss_lib
@@ -35,12 +44,17 @@ from segtpu_torch.core.state import TrainState, make_optimizer
 from segtpu_torch.core.steps import make_eval_step, make_train_step
 from segtpu_torch.data import DevicePrefetcher
 from segtpu_torch.metrics import AverageMeter, SegStats
-from segtpu_torch.utils.helpers import dir_exists
+from segtpu_torch.pretrained import maybe_load_pretrained
+from segtpu_torch.utils.helpers import colorize_mask, denormalize, dir_exists
+from segtpu_torch.utils.logger import setup_logging
+from segtpu_torch.utils.tensorboard import SummaryWriter
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: segtpu's trainer keys that the port does not implement yet: each is
 #: ignored with a warning
-_NOT_PORTED = ("tensorboard", "log_dir", "profile", "remat", "devices", "device_ids")
+_NOT_PORTED = ("remat", "devices", "device_ids")
+#: the val batches whose first image goes into the grid
+_VIZ_BATCHES = 15
 
 
 class TrainingPreempted(RuntimeError):
@@ -48,31 +62,22 @@ class TrainingPreempted(RuntimeError):
     written (its message says where the resumed run starts)."""
 
 
-def setup_logging(level=logging.INFO) -> logging.Logger:
-    logger = logging.getLogger("segtpu_torch")
-    if not logger.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter(
-            "%(asctime)s %(name)s %(levelname)s: %(message)s"))
-        logger.addHandler(handler)
-    logger.setLevel(level)
-    logger.propagate = False
-    return logger
-
-
 class Trainer:
     """Trains ``model`` on ``train_loader`` from a config with segtpu's
     schema. ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``;
     ``trainer.compute_dtype`` ("bfloat16" default, or "float32") picks the
     activation dtype. ``resume`` is a checkpoint directory to continue
-    from."""
+    from; ``train_logger`` (a ``utils.logger.Logger``) gets each epoch's
+    log."""
 
     def __init__(self, model, loss, config: Dict, train_loader,
-                 val_loader=None, device="cuda", resume: Optional[str] = None):
+                 val_loader=None, device="cuda", resume: Optional[str] = None,
+                 train_logger=None):
         self.device = resolve_device(device)
         setup_logging()
         self.logger = logging.getLogger(f"segtpu_torch.{type(self).__name__}")
         self.config = config
+        self.train_logger = train_logger
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.num_classes = train_loader.dataset.num_classes
@@ -126,6 +131,9 @@ class Trainer:
             iters_per_epoch=max(len(train_loader), 1),
             **opt_cfg.get("args", {}))
         self.state = TrainState(model, optimizer, schedules)
+        # in place, so the optimizer keeps its parameters; before a resume,
+        # which overwrites it
+        maybe_load_pretrained(model, config)
         # dropout draws from the global generator: seeded from the config as
         # segtpu seeds its dropout key (seed + 1), restored by a resume
         torch.manual_seed(config.get("seed", 0) + 1)
@@ -164,6 +172,14 @@ class Trainer:
         dir_exists(self.checkpoint_dir)
         with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as f:
             json.dump(config, f, indent=4, sort_keys=True)
+        self.writer = None
+        if cfg_trainer.get("tensorboard", True):
+            self.writer = SummaryWriter(os.path.join(
+                cfg_trainer.get("log_dir", "saved/runs"), config.get("name", "run"),
+                start_time))
+        self.profile_steps = cfg_trainer.get("profile", 0)
+        self.profile_dir = os.path.join(self.checkpoint_dir, "profile")
+        self.wrt_step = 0
         if resume:
             self._resume_checkpoint(resume)
 
@@ -187,6 +203,8 @@ class Trainer:
                 f"{os.path.join(self.checkpoint_dir, 'checkpoint-latest')}")
         finally:
             self._restore_preemption_handler()
+            if self.writer is not None:
+                self.writer.close()
         return self.history
 
     def _install_preemption_handler(self):
@@ -230,6 +248,10 @@ class Trainer:
                 results = {**results, **self._valid_epoch(epoch)}
             log = {"epoch": epoch, **results}
             self.history.append(log)
+            if self.train_logger is not None:
+                self.train_logger.add_entry(log)
+            if self.writer is not None:
+                self.writer.flush()
 
             if self.mnt_mode != "off" and epoch % self.val_per_epochs == 0:
                 if self.mnt_metric not in log:
@@ -278,58 +300,132 @@ class Trainer:
             skip, self._resume_iter = self._resume_iter, 0
             self.train_loader.skip_batches(skip)
         iters_per_epoch = len(self.train_loader)
+        profiler = None
+        if self.profile_steps > 0 and epoch == self.start_epoch:
+            profiler = self._start_profile()
         tic = time.perf_counter()
-        # D: the wait for the next batch on the device
-        for it, (images, labels) in enumerate(
-                DevicePrefetcher(self.train_loader, self.device)):
-            data_time.update(time.perf_counter() - tic)
-            loss, stats = self.train_step(self.state, images, labels)
-            total = total + stats
-            loss_acc += loss
-            n_iters += 1
-            it_abs = it + skip  # the position in the epoch's order
-            if it_abs + 1 < iters_per_epoch and (
-                    self._preempted or (self.save_per_iters and
-                                        (it_abs + 1) % self.save_per_iters == 0)):
-                # the state holds this iteration's update; a resume replays
-                # the order from it_abs + 1 (a SIGTERM on the last iteration
-                # is handled in _train_loop)
-                self._save_latest(epoch - 1, extra_meta={
-                    "resume_epoch": epoch, "resume_iter": it_abs + 1})
-                if self._preempted:
-                    raise TrainingPreempted(
-                        f"epoch {epoch} iter {it_abs + 1}/{iters_per_epoch}")
-            if (it + 1) % self.log_per_iter == 0:
-                lrs = ", ".join(f"{lr:.6g}" for lr in self.state.current_lrs())
-                self.logger.info(f"epoch {epoch} iter {it_abs + 1} | loss "
-                                 f"{float(loss):.4f} | lr {lrs}")
-            batch_time.update(time.perf_counter() - tic)
-            tic = time.perf_counter()
+        # D: the wait for the next batch on the device. The finally stops a
+        # trace that a SIGTERM (or a failed step) ends early, so it is whole.
+        try:
+            for it, (images, labels) in enumerate(
+                    DevicePrefetcher(self.train_loader, self.device)):
+                data_time.update(time.perf_counter() - tic)
+                if profiler is not None and it == self.profile_steps:
+                    self._stop_profile(profiler)
+                    profiler = None
+                loss, stats = self.train_step(self.state, images, labels)
+                total = total + stats
+                loss_acc += loss
+                n_iters += 1
+                it_abs = it + skip  # the position in the epoch's order
+                if it_abs + 1 < iters_per_epoch and (
+                        self._preempted or (self.save_per_iters and
+                                            (it_abs + 1) % self.save_per_iters == 0)):
+                    # the state holds this iteration's update; a resume
+                    # replays the order from it_abs + 1 (a SIGTERM on the last
+                    # iteration is handled in _train_loop)
+                    self._save_latest(epoch - 1, extra_meta={
+                        "resume_epoch": epoch, "resume_iter": it_abs + 1})
+                    if self._preempted:
+                        raise TrainingPreempted(
+                            f"epoch {epoch} iter {it_abs + 1}/{iters_per_epoch}")
+                if (it + 1) % self.log_per_iter == 0:
+                    loss_val = float(loss)
+                    lrs = ", ".join(f"{lr:.6g}" for lr in self.state.current_lrs())
+                    self.logger.info(f"epoch {epoch} iter {it_abs + 1} | loss "
+                                     f"{loss_val:.4f} | lr {lrs}")
+                    self.wrt_step = (epoch - 1) * iters_per_epoch + it_abs + 1
+                    if self.writer is not None:
+                        self.writer.add_scalar("train/loss", loss_val, self.wrt_step)
+                batch_time.update(time.perf_counter() - tic)
+                tic = time.perf_counter()
+        finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
         avg_loss = float(loss_acc) / max(n_iters, 1)
         log = self._log_dict("loss", avg_loss, total)
+        if self.writer is not None:
+            for k in ("Pixel_Accuracy", "Mean_IoU"):
+                self.writer.add_scalar(f"train/{k}", log[k], self.wrt_step)
+            # one a parameter group, segtpu's order: decoder, then backbone
+            for i, lr in enumerate(self.state.current_lrs()):
+                self.writer.add_scalar(f"train/Learning_rate_{i}", lr, self.wrt_step)
         self.logger.info(
             f"TRAIN epoch {epoch} | loss {avg_loss:.3f} | "
             f"mIoU {log['Mean_IoU']:.3f} | PixAcc {log['Pixel_Accuracy']:.3f} | "
             f"B {batch_time.average:.3f}s D {data_time.average:.3f}s")
         return log
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(self.profile_dir))
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler):
+        """Waits for the traced steps' device work, then writes the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        self.logger.info(f"profile of the first {self.profile_steps} steps written "
+                         f"to {self.profile_dir}")
+
     def _valid_epoch(self, epoch: int) -> Dict:
         """val_loss is weighted by each batch's valid pixels, so the padded
-        tail batch does not bias it."""
+        tail batch does not bias it. With tensorboard, the first image of
+        each of the first 15 batches goes into the val grid: its argmax is
+        taken on the device, and only that image is copied to the host."""
         total = SegStats.zeros(self.num_classes, self.device)
         loss_acc = torch.zeros((), device=self.device)
         weight_acc = torch.zeros((), device=self.device)
-        for images, labels in DevicePrefetcher(self.val_loader, self.device):
-            loss, stats = self.eval_step(self.model, images, labels)
+        viz = []
+        for it, (images, labels) in enumerate(DevicePrefetcher(self.val_loader, self.device)):
+            loss, stats, logits = self.eval_step(self.model, images, labels)
+            if self.writer is not None and it < _VIZ_BATCHES:
+                pred = torch.argmax(logits[:1], dim=1)[0]
+                viz.append((images[0].cpu().numpy(), labels[0].cpu().numpy(),
+                            pred.cpu().numpy()))
             total = total + stats
             loss_acc += loss * stats.labeled
             weight_acc += stats.labeled
         avg_loss = float(loss_acc) / max(float(weight_acc), 1e-12)
         log = self._log_dict("val_loss", avg_loss, total)
+        if self.writer is not None:
+            self._write_val_grid(viz, epoch)
+            self.wrt_step = epoch * max(len(self.train_loader), 1)
+            self.writer.add_scalar("val/loss", avg_loss, self.wrt_step)
+            for k in ("Pixel_Accuracy", "Mean_IoU"):
+                self.writer.add_scalar(f"val/{k}", log[k], self.wrt_step)
         self.logger.info(
             f"VAL   epoch {epoch} | loss {avg_loss:.3f} | "
             f"mIoU {log['Mean_IoU']:.3f} | PixAcc {log['Pixel_Accuracy']:.3f}")
         return log
+
+    def _write_val_grid(self, viz, epoch: int):
+        """Rows of (input | target | prediction), segtpu's grid: uint8
+        pixels over 255 or the denormalized image, the target (ignore shown
+        as 255) and the prediction through the palette; CHW in [0, 1]."""
+        if not viz:
+            return
+        ds = self.val_loader.dataset
+        rows = []
+        for img, tgt, pred in viz:
+            if img.dtype == np.uint8:  # uint8 transport: raw pixels
+                rgb = img.astype(np.float32) / 255.0
+            else:
+                rgb = denormalize(img, ds.mean, ds.std)
+            tgt_rgb = np.asarray(colorize_mask(np.where(tgt < 0, 255, tgt), ds.palette)
+                                 .convert("RGB"), np.float32) / 255.0
+            pred_rgb = np.asarray(colorize_mask(pred, ds.palette).convert("RGB"),
+                                  np.float32) / 255.0
+            rows.append(np.concatenate([rgb, tgt_rgb, pred_rgb], axis=1))
+        grid = np.concatenate(rows, axis=0)
+        self.writer.add_image("val/inputs_targets_predictions", grid.transpose(2, 0, 1), epoch)
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False):
         arch = type(self.model).__name__

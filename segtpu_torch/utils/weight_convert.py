@@ -436,15 +436,20 @@ def fcn8_state_dict_from_segtpu(params: Dict, batch_stats: Dict) -> Dict[str, to
 def pspdensenet_state_dict_from_segtpu(params: Dict, batch_stats: Dict
                                        ) -> Dict[str, torch.Tensor]:
     """segtpu PSPDenseNet ``(params, batch_stats)`` -> the port's
-    ``state_dict``: the from-scratch stem at ``block0.{0,1,3,4,6,7}``,
+    ``state_dict``: the from-scratch stem at ``block0.{0,1,3,4,6,7}`` or the
+    7x7 stem (segtpu's ``pretrained_stem``) at ``block0.{0,1}``,
     ``blockN.denselayerM.{norm1,conv1,norm2,conv2}``,
     ``transition1.{norm,conv}``, ``transition{2,3}.{0,2}``, and the head and
     aux head under PSPNet's keys."""
     sd: Dict[str, torch.Tensor] = {}
     bp, bs = params["backbone"], batch_stats["backbone"]
-    for i in range(3):
-        _conv(sd, f"block0.{3 * i}", bp[f"stem_conv{i}"])
-        _bn(sd, f"block0.{3 * i + 1}", bp[f"stem_bn{i}"], bs[f"stem_bn{i}"])
+    if "stem_conv" in bp:
+        _conv(sd, "block0.0", bp["stem_conv"])
+        _bn(sd, "block0.1", bp["stem_bn"], bs["stem_bn"])
+    else:
+        for i in range(3):
+            _conv(sd, f"block0.{3 * i}", bp[f"stem_conv{i}"])
+            _bn(sd, f"block0.{3 * i + 1}", bp[f"stem_bn{i}"], bs[f"stem_bn{i}"])
     for bi in range(1, 5):
         p, s = bp[f"denseblock{bi}"], bs[f"denseblock{bi}"]
         li = 1

@@ -69,6 +69,7 @@ def _config(save_dir, **trainer):
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 2, "save_dir": str(save_dir), "save_period": 1,
+                    "log_dir": os.path.join(str(save_dir), "runs"),
                     "save_per_iters": 2, "log_per_iter": 1, "val": True,
                     "monitor": "max Mean_IoU", "early_stop": 10,
                     "compute_dtype": "float32", **trainer},
@@ -292,6 +293,7 @@ def test_train_cli_resumes_with_the_checkpoint_config(reference, tmp_path):
     shutil.copytree(os.path.join(reference["dir"], "checkpoint-epoch1"), ckpt)
     meta = json.load(open(os.path.join(ckpt, "meta.json")))
     meta["config"]["trainer"]["save_dir"] = str(tmp_path / "saved")
+    meta["config"]["trainer"]["log_dir"] = str(tmp_path / "runs")
     json.dump(meta, open(os.path.join(ckpt, "meta.json"), "w"))
     res = subprocess.run([sys.executable, "-m", "segtpu_torch.train", "--resume",
                           ckpt, "--device", "cpu"], cwd=tmp_path, env=env,
@@ -305,6 +307,8 @@ def test_train_cli_resumes_with_the_checkpoint_config(reference, tmp_path):
 
 
 def test_unported_trainer_keys_are_logged(tmp_path):
+    """``tensorboard``, ``log_dir`` and ``profile`` are ported: no warning,
+    and the event file goes under ``log_dir``."""
     records = []
     handler = logging.Handler()
     handler.emit = records.append
@@ -312,12 +316,12 @@ def test_unported_trainer_keys_are_logged(tmp_path):
     logger.addHandler(handler)
     try:
         config = _config(tmp_path, tensorboard=True, log_dir=str(tmp_path), profile=3)
-        _trainer(config)
+        trainer = _trainer(config)
     finally:
         logger.removeHandler(handler)
     msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
-    assert msgs == [f"trainer.{k} is not ported yet (ROADMAP); ignored"
-                    for k in ("tensorboard", "log_dir", "profile")]
+    assert msgs == []
+    assert os.path.dirname(trainer.writer.path).startswith(str(tmp_path))
 
 
 @pytest.mark.parametrize("arch", sorted(MODELS))

@@ -161,6 +161,7 @@ def test_cli_trains_from_a_cityscapes_tree_and_infers(tmp_path):
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "save_dir": str(tmp_path / "saved"), "save_period": 1,
+                    "log_dir": str(tmp_path / "runs"),
                     "monitor": "max Mean_IoU", "compute_dtype": "float32",
                     "log_per_iter": 1},
     }

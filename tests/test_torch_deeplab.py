@@ -295,7 +295,7 @@ def test_training_cli_trains_deeplab_on_cpu(backbone, tmp_path):
         "lr_scheduler": {"type": "OneCycle", "args": {}},
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
                     "monitor": "max Mean_IoU", "compute_dtype": "float32",
-                    "save_dir": str(tmp_path)},
+                    "save_dir": str(tmp_path), "log_dir": str(tmp_path / "runs")},
     }
     trainer = train_cli.main(config, "cpu")
     assert isinstance(trainer.model, DeepLab) and trainer.state.step == 2
@@ -309,5 +309,8 @@ def test_get_model_builds_deeplab_from_a_seed():
     b = get_model("DeepLab", device="cpu", seed=3, num_classes=3, backbone="resnet18")
     assert a.backbone_modules == ("backbone",)
     assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepLab(3, pretrained=True)
+    # pretrained is recorded, and the Trainer, not the constructor, loads it
+    p = get_model("DeepLab", device="cpu", seed=3, num_classes=3, backbone="resnet18",
+                  pretrained=True)
+    assert p.pretrained is True
+    assert all(torch.equal(v, a.state_dict()[k]) for k, v in p.state_dict().items())

@@ -152,5 +152,5 @@ def test_get_model_builds_duc_hdc_from_a_seed():
                   backbone="resnet18")
     assert a.backbone_modules == ("backbone",)
     assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepLab_DUC_HDC(3, pretrained=True)
+    zoo.assert_pretrained_only_recorded(a, "DeepLab_DUC_HDC", seed=3, num_classes=3,
+                                        backbone="resnet18")

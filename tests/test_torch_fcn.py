@@ -176,8 +176,7 @@ def test_get_model_builds_fcn8_from_a_seed(narrow):
     assert a.backbone_modules == ("pool3", "pool4", "pool5", "output")
     drops = [m for m in a.modules() if isinstance(m, torch.nn.modules.dropout._DropoutNd)]
     assert [type(m) for m in drops] == [torch.nn.Dropout] * 2 and drops[0].p == 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FCN8(3, pretrained=True)
+    zoo.assert_pretrained_only_recorded(a, "FCN8", seed=3, num_classes=3)
     assert np.isfinite(a.eval()(torch.zeros(1, 3, 33, 33))["out"].detach().numpy()).all()
 
 

@@ -170,6 +170,5 @@ def test_get_model_builds_gcn_from_a_seed():
     assert a.backbone_modules == ("backbone",)
     # segtpu's final_conv bias starts at zero
     assert not a.final_conv.bias.any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GCN(3, pretrained=True)
+    zoo.assert_pretrained_only_recorded(a, "GCN", seed=3, num_classes=3, backbone="resnet18")
     assert np.isfinite(a.eval()(torch.zeros(1, 3, 33, 33))["out"].detach().numpy()).all()

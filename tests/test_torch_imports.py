@@ -1,6 +1,8 @@
 """The port stands alone: segtpu_torch, chip_smoke.py and scripts/torch_*.py
-import no JAX, no flax or optax, nothing of segtpu and no cv2 (the GPU
-machine has none), and PIL nowhere at module scope."""
+import no JAX, no flax, optax or orbax, nothing of segtpu, no cv2, no
+tensorboardX (the GPU machine lacks it) and no tensorboard (the GPU machine
+has it, but the port writes its own event files), and PIL nowhere at module
+scope."""
 
 import ast
 import subprocess
@@ -12,7 +14,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = (sorted((REPO / "segtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
            + sorted((REPO / "scripts").glob("torch_*.py")))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "segtpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "segtpu", "cv2", "tensorboardX",
+             "tensorboard")
 NOT_AT_MODULE_SCOPE = ("PIL",)
 
 
@@ -70,6 +73,15 @@ SLICE_MODULES = {
     "segtpu_torch.backbones.densenet": ("DENSENET_CONFIG", "DenseLayer", "DenseBlock",
                                         "DenseNetFeatures"),
     "segtpu_torch.ops.shape": ("pad_or_crop_tl",),
+    # the pretrained encoders and the trainer's runtime
+    "segtpu_torch.pretrained": ("checkpoint_id", "resolve_path", "apply_pretrained",
+                                "maybe_load_pretrained", "remap", "file_layout"),
+    "segtpu_torch.utils.tensorboard": ("SummaryWriter", "read_events", "crc32c"),
+    "segtpu_torch.utils.logger": ("Logger", "setup_logging"),
+    "segtpu_torch.utils.summary": ("count_params", "count_bn_stats", "summary", "describe"),
+    "segtpu_torch.utils.transforms": ("Compose", "DeNormalize", "RandomCrop", "CenterCrop",
+                                      "RandomHorizontallyFlip", "Scale", "RandomSizedCrop",
+                                      "RandomRotate", "SlidingCrop"),
 }
 
 

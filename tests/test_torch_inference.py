@@ -186,6 +186,7 @@ def trained(tmp_path_factory):
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "save_dir": str(root), "save_period": 1,
+                    "log_dir": str(root / "runs"),
                     "monitor": "max Mean_IoU", "compute_dtype": "float32"},
     }
     model = get_model("PSPNet", device="cpu", num_classes=CLASSES,

@@ -265,7 +265,7 @@ def _config(save_dir, **trainer):
         "loss": "CE_DiceLoss", "ignore_index": 255,
         "lr_scheduler": {"type": "OneCycle", "args": {}},
         "trainer": {"epochs": 2, "save_dir": str(save_dir), "save_period": 1,
-                    "log_per_iter": 1, "val": True, "monitor": "max Mean_IoU",
+                    "log_dir": os.path.join(str(save_dir), "runs"), "log_per_iter": 1, "val": True, "monitor": "max Mean_IoU",
                     "compute_dtype": "float32", **trainer},
     }
 

@@ -182,6 +182,8 @@ def test_get_model_builds_pspdensenet_from_a_seed():
     assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
     assert a.backbone_modules == ("block0", "block1", "block2", "block3", "block4",
                                   "transition1", "transition2", "transition3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSPDenseNet(3, backbone=ARCH, pretrained=True)
+    # pretrained selects torchvision's 7x7 stem (segtpu's pretrained_stem)
+    # and loads nothing: the Trainer loads the file
+    stem = PSPDenseNet(3, backbone=ARCH, pretrained=True).block0
+    assert stem[0].weight.shape == (64, 3, 7, 7) and len(stem) == 4
     assert np.isfinite(a.eval()(torch.zeros(1, 3, 33, 33))["out"].detach().numpy()).all()

@@ -183,7 +183,6 @@ def test_get_model_builds_segnet_from_a_seed():
     assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
     assert a.backbone_modules == ("first_conv", "encoder")
     assert SegNet.backbone_modules == tuple(f"stage{i}_encoder" for i in range(1, 6))
-    for cls in (SegNet, SegResNet):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(3, pretrained=True)
+    zoo.assert_pretrained_only_recorded(a, "SegResNet", seed=3, num_classes=3)
+    assert SegNet(3, pretrained=True).pretrained is True
     assert np.isfinite(a.eval()(torch.zeros(1, 3, 33, 33))["out"].detach().numpy()).all()

@@ -97,7 +97,7 @@ def trajectories():
     images, labels = batches[STEPS]
     ev = make_eval_step(losses.cross_entropy, compute_dtype=torch.float32,
                         norm_stats=NORM)
-    loss, st = ev(port, torch.from_numpy(images), torch.from_numpy(labels))
+    loss, st, _ = ev(port, torch.from_numpy(images), torch.from_numpy(labels))
     port_eval = (loss.numpy(), tuple(t.numpy() for t in st))
     return seg_snaps, port_snaps, seg_eval, port_eval
 

@@ -105,7 +105,7 @@ def test_trainer_raises_on_a_model_axis(keys):
         _cpu_trainer(_config(**keys))
 
 
-def test_trainer_warns_on_remat_and_device_keys():
+def test_trainer_warns_on_remat_and_device_keys(tmp_path):
     """``remat``, ``devices`` and ``device_ids`` are ignored with a warning
     each; ``model_parallel: 1`` and ``spatial: false`` are accepted."""
     records = []
@@ -115,7 +115,8 @@ def test_trainer_warns_on_remat_and_device_keys():
     logger.addHandler(handler)
     try:
         _cpu_trainer(_config(remat=True, devices=2, device_ids="0,1",
-                             model_parallel=1, spatial=False))
+                             model_parallel=1, spatial=False, save_dir=str(tmp_path),
+                             log_dir=str(tmp_path / "runs")))
     finally:
         logger.removeHandler(handler)
     msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
@@ -135,7 +136,8 @@ def test_trainer_rejects_an_unsupported_compute_dtype(dtype):
 def test_trainer_monitor_and_early_stop(monitor, tmp_path):
     """With early_stop 0 the run stops at the first epoch that does not
     improve on the best so far; a metric never computed stops it at once."""
-    cfg = _config(epochs=4, monitor=monitor, early_stop=0, save_dir=str(tmp_path))
+    cfg = _config(epochs=4, monitor=monitor, early_stop=0, save_dir=str(tmp_path),
+                  log_dir=str(tmp_path / "runs"))
     loader = Synthetic(**cfg["train_loader"]["args"])
     val = Synthetic(**cfg["val_loader"]["args"])
     model = get_model("PSPNet", device="cpu", num_classes=3, backbone="resnet18")

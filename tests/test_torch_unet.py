@@ -150,5 +150,5 @@ def test_constructors_take_segtpus_attributes():
     b = get_model("UNetResnet", device="cpu", seed=3, num_classes=3, backbone="resnet18")
     assert all(torch.equal(v, b.state_dict()[k]) for k, v in a.state_dict().items())
     assert get_model("UNet", device="cpu", num_classes=3).backbone_modules == ()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetResnet(3, pretrained=True)
+    zoo.assert_pretrained_only_recorded(a, "UNetResnet", seed=3, num_classes=3,
+                                        backbone="resnet18")

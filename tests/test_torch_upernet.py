@@ -107,9 +107,8 @@ def test_lateral_p0_weights_load_strict():
 
 
 def test_options_segtpu_does_not_run_raise_and_backbone_trains_at_lr_over_10():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UperNet(3, backbone="resnet18", pretrained=True)
     model = UperNet(3, backbone="resnet18", use_aux=False)
+    assert UperNet(3, backbone="resnet18", pretrained=True).pretrained is True
     opt, scheds = make_optimizer(model, lr=0.01, num_epochs=1, iters_per_epoch=4)
     decoder, backbone = opt.param_groups
     names = {id(p): n for n, p in model.named_parameters()}
@@ -192,7 +191,7 @@ def test_training_cli_trains_upernet_on_cpu(tmp_path):
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
                     "monitor": "max Mean_IoU", "compute_dtype": "float32",
-                    "save_dir": str(tmp_path)},
+                    "save_dir": str(tmp_path), "log_dir": str(tmp_path / "runs")},
     }
     trainer = train_cli.main(config, "cpu")
     assert isinstance(trainer.model, UperNet) and trainer.state.step == 2

@@ -23,6 +23,7 @@ port's model against segtpu's on the same weights and inputs, on the CPU.
 from __future__ import annotations
 
 import functools
+import os
 
 import flax
 import flax.linen
@@ -243,8 +244,19 @@ def cli_config(arch, save_dir, crop=33, classes=3):
         "lr_scheduler": {"type": "Poly", "args": {}},
         "trainer": {"epochs": 1, "log_per_iter": 1, "val": True,
                     "monitor": "max Mean_IoU", "compute_dtype": "float32",
-                    "save_dir": str(save_dir)},
+                    "save_dir": str(save_dir),
+                    "log_dir": os.path.join(str(save_dir), "runs")},
     }
+
+
+def assert_pretrained_only_recorded(built, name, **kwargs):
+    """``pretrained=True`` builds the same model from the same seed (the
+    Trainer loads the file, not the constructor) and records the flag."""
+    from segtpu_torch.models import get_model
+
+    model = get_model(name, device="cpu", pretrained=True, **kwargs)
+    assert model.pretrained is True and model.state_dict().keys() == built.state_dict().keys()
+    assert all(torch.equal(v, built.state_dict()[k]) for k, v in model.state_dict().items())
 
 
 def assert_cli_trained(trainer, model_cls):
