@@ -155,7 +155,27 @@ Phases, each announced on its own line:
     (UperNet-R101, SegNet, FCN8 with FC6/FC7, DeepLab-Xception,
     GCN-ResnetGCN-R50 from a plain ResNet-50 file, SegResNet) loaded into
     the model on the card, bit for bit, with its load seconds;
-18. the script's time, the ``kernels`` JSON line (each kernel's launches on
+18. data parallel: (a) two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), started by the port's launcher
+    (``segtpu_torch.core.mesh.launch``) with the backend named here:
+    PSPNet-R50 with the stem kernel at 769x769, global batch 8 (4 a rank),
+    bf16 autocast, SGD under Poly, dropout 0, GlobalBatchNorm2d and the
+    DistributedDataParallel wrap, DP_WARMUP + DP_TIMED steps, then one fp32
+    step from the same start, held against one process taking the same
+    steps on the whole batch from the same weights: every step's global loss
+    within DP_LOSS_TOL; after the fp32 step the change of all parameters and
+    of all running statistics within DP_NOISE_FACTOR times that of a control
+    (one process, the batch's halves swapped), at least DP_UPDATE_TOL; both
+    ranks' weights
+    equal bit for bit; one stem launch a step on each rank (each rank's
+    counts set to 0 just before its steps and read just after); per-rank
+    ms/step (host-bound over gloo: no target), the gradients' all-reduce
+    timed alone, each rank's peak memory. (b) one rank over NCCL:
+    GlobalBatchNorm2d (``convert_global_bn(force=True)``) forward and
+    backward against ``nn.BatchNorm2d`` within DP_BN_TOL, and one wrapped
+    PSPNet-R50 step at batch 8, its loss against the one-process step's;
+    torch's NCCL version;
+19. the script's time, the ``kernels`` JSON line (each kernel's launches on
     every path above), then the card's name and power limit, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -237,6 +257,30 @@ INFER_TOL = 1e-4
 # difference|, and the top-two margin below which a prediction may differ
 SERVE_TOL = 1e-3
 TIMED_STEPS, TRACED_STEPS = 5, 3
+# data parallel: the 2-rank steps against one process on the whole batch.
+# The bf16 steps: each step's global loss within DP_LOSS_TOL relative (both
+# sides' cuDNN kernels run at batch 4 against 8 and sum in other orders; the
+# loss is a mean over 4.7M pixels). Their weights are not held: at random
+# init much of the gradient is a sum that cancels, so that bf16 moves it by
+# far more than the split does (bf16 against fp32 of the same one-process
+# code differs by tens of percent, relative L2). One more step from the same
+# start, in fp32 (TF32 off), is held instead: the change of all parameters,
+# and of all running statistics, against the one-process change, relative
+# L2 over the model, within the larger of DP_UPDATE_TOL and DP_NOISE_FACTOR
+# times the control's: the one-process step on the batch with its two
+# halves swapped, which moves the update by the order of the sums alone
+# (the gradient sums over 8 x 769^2 pixels cancel: 2.2e-2 for the
+# parameters on an H100 80GB HBM3 at 700 W, against 2.4e-2 for the split,
+# this phase's reading). A rank
+# that dropped the loss's scale by the world size moves it by 0.5.
+DP_WARMUP, DP_TIMED, DP_SEED = 2, 3, 9
+DP_LOSS_TOL = 1e-2
+DP_UPDATE_TOL = 1e-2
+DP_NOISE_FACTOR = 3
+# GlobalBatchNorm2d against cuDNN's BN in fp32: two-pass sums in another
+# order, relative to the largest value
+DP_BN_TOL = 1e-4
+DP_NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 # kernel-name substrings -> category of the traced step, first match wins
 CATEGORIES = [
     ("stem_wgrad", "stem weight gradient (segtpu_torch CUDA kernel)"),
@@ -2240,6 +2284,277 @@ def pretrained_phases(workdir, card, recorder, main_numbers, zoo_numbers):
     return launches, numbers
 
 
+def dp_batches(device):
+    """The data-parallel phase's global batches of 8, seeded on the card:
+    the same in every process."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(900)
+    out = []
+    for _ in range(DP_WARMUP + DP_TIMED):
+        images = torch.randint(0, 256, (BATCH, CROP, CROP, 3), generator=g, device=device,
+                               dtype=torch.uint8)
+        labels = torch.randint(0, CLASSES, (BATCH, CROP, CROP), generator=g, device=device)
+        labels[:, :64, :64] = 255
+        out.append((images, labels))
+    return out
+
+
+def dp_model(device):
+    """PSPNet-R50 with the stem kernel from DP_SEED, dropout 0 (the two runs
+    draw other masks)."""
+    import torch
+
+    from segtpu_torch.models import get_model
+
+    model = get_model("PSPNet", device=device, seed=DP_SEED, num_classes=CLASSES,
+                      backbone="resnet50", pallas_stem_wgrad=True)
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.p = 0.0
+    return model
+
+
+def dp_train(model, batches, rows, data_parallel, dtype):
+    """The steps of ``batches[i][rows]`` (SGD under Poly, ``dtype``), through
+    the data-parallel wrap with ``data_parallel``; the stem launches counted
+    from 0. Returns (losses, ms a step, stem launches)."""
+    import torch
+
+    from segtpu_torch import losses
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.core.steps import make_train_step
+
+    opt, scheds = make_optimizer(model, lr=0.01, momentum=0.9, weight_decay=1e-4,
+                                 num_epochs=1, iters_per_epoch=10)
+    state = TrainState(model, opt, scheds)
+    if data_parallel:
+        state.data_parallel()
+    step = make_train_step(losses.cross_entropy, compute_dtype=dtype, norm_stats=DP_NORM)
+    reset_launches()
+    out, ms = [], []
+    for images, labels in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(state, images[rows], labels[rows])
+        out.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, read_launches()["stem_conv_wgrad"]
+
+
+def dp_rank(device, workdir):
+    """One rank of the data-parallel phase (started by the launcher, in a
+    process group): its rows of each global batch, GlobalBatchNorm2d and the
+    wrap; the bf16 steps, then one fp32 step from the start. Writes
+    ``dp-rank<r>.json`` and, on rank 0, the fp32 step's state."""
+    import torch
+    import torch.distributed as dist
+
+    from segtpu_torch.core import mesh
+    from segtpu_torch.nn.layers import convert_global_bn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    r, per = mesh.rank(), BATCH // mesh.world_size()
+    rows = slice(r * per, (r + 1) * per)
+    batches = dp_batches(device)
+    model = dp_model(device)
+    converted = convert_global_bn(model)
+    losses, ms, launches = dp_train(model, batches, rows, True, torch.bfloat16)
+    spread = dp_spread(model)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del model
+    torch.cuda.empty_cache()
+    model = dp_model(device)
+    convert_global_bn(model)
+    loss32, _, launches32 = dp_train(model, batches[:1], rows, True, torch.float32)
+    spread = max(spread, dp_spread(model))
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=device)
+    allreduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+    if r == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   os.path.join(workdir, "dp-state.pt"))
+    with open(os.path.join(workdir, f"dp-rank{r}.json"), "w") as f:
+        json.dump({"rank": r, "device": str(device), "losses": losses, "ms": ms,
+                   "stem_launches": launches, "fp32_loss": loss32[0],
+                   "fp32_stem_launches": launches32, "converted_bn": converted,
+                   "grad_allreduce_ms": allreduce_ms, "grad_bytes": flat.numel() * 4,
+                   "rank0_spread": spread, "peak_gib": peak}, f)
+
+
+def dp_spread(model):
+    """The largest |this rank's tensor - rank 0's| over the model's state."""
+    import torch.distributed as dist
+
+    spread = 0.0
+    for v in model.state_dict().values():
+        ref = v.clone()
+        dist.broadcast(ref, 0)
+        spread = max(spread, float((v.double() - ref.double()).abs().max()))
+    return spread
+
+
+def dp_update_error(got, want, start, keys):
+    """The change since ``start`` of ``got[keys]`` against ``want``'s,
+    relative L2 over all of ``keys``."""
+    diff = norm = 0.0
+    for k in keys:
+        d_got, d_want = got[k].double() - start[k].double(), want[k].double() - start[k].double()
+        diff += float((d_got - d_want).square().sum())
+        norm += float(d_want.square().sum())
+    return math.sqrt(diff / max(norm, 1e-300))
+
+
+def data_parallel_phase(workdir, card):
+    """Phase 18; returns (stem launches per rank, the numbers)."""
+    import torch
+
+    from segtpu_torch.core import mesh
+    from segtpu_torch.nn.layers import GlobalBatchNorm2d, convert_global_bn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    batches = dp_batches(dev)
+    model = dp_model(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    ref_losses, ref_ms, ref_launches = dp_train(model, batches, slice(None), False,
+                                                torch.bfloat16)
+    model.load_state_dict(start)
+    ref_loss32, _, _ = dp_train(model, batches[:1], slice(None), False, torch.float32)
+    ref = {k: v.clone() for k, v in model.state_dict().items()}
+    # the control: the same fp32 step on the batch with its halves swapped,
+    # which moves the update only by the order of the sums
+    model.load_state_dict(start)
+    half = BATCH // 2
+    swapped = [tuple(torch.cat([t[half:], t[:half]]) for t in batches[0])]
+    dp_train(model, swapped, slice(None), False, torch.float32)
+    control = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"one process, batch 8: losses {ref_losses}, ms/step {ref_ms}, stem launches "
+          f"{ref_launches} [{card}]", flush=True)
+    check(ref_launches == DP_WARMUP + DP_TIMED, f"one-process stem launches {ref_launches}")
+
+    t0 = time.perf_counter()
+    mesh.launch(dp_rank, (workdir,), ["cuda:0", "cuda:0"], backend="gloo", timeout=300)
+    launch_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"dp-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    numbers = {"one_process": {"losses": ref_losses, "ms": ref_ms}, "ranks": ranks,
+               "launch_s": launch_s}
+    for rk in ranks:
+        timed = rk["ms"][DP_WARMUP:]
+        print(f"rank {rk['rank']} on {rk['device']} over gloo: {rk['converted_bn']} BNs "
+              f"made GlobalBatchNorm2d; losses {rk['losses']}; ms/step {rk['ms']} (timed "
+              f"mean {sum(timed) / len(timed):.1f}; host-bound over gloo on one card, no "
+              f"target); the gradients' all-reduce ({rk['grad_bytes'] / 1e6:.1f} MB) timed "
+              f"alone {rk['grad_allreduce_ms']} ms; peak {rk['peak_gib']:.2f} GiB; stem "
+              f"launches {rk['stem_launches']} [{card}]", flush=True)
+        check(rk["stem_launches"] == DP_WARMUP + DP_TIMED and rk["fp32_stem_launches"] == 1,
+              f"rank {rk['rank']} launched the stem kernel {rk['stem_launches']} and "
+              f"{rk['fp32_stem_launches']} times")
+        check(rk["rank0_spread"] == 0.0, f"rank {rk['rank']}'s state differs from rank "
+              f"0's by {rk['rank0_spread']}")
+        check(rk["losses"] == ranks[0]["losses"], "the ranks logged other losses")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    loss32_err = abs(ranks[0]["fp32_loss"] - ref_loss32[0]) / abs(ref_loss32[0])
+    got = {k: v.to(dev) for k, v in torch.load(os.path.join(workdir, "dp-state.pt"),
+                                               weights_only=True).items()}
+    moved = [k for k in ref if ref[k].is_floating_point() and not torch.equal(ref[k], start[k])]
+    stats = [k for k in moved if "running_" in k]
+    weights = [k for k in moved if "running_" not in k]
+    err_w = dp_update_error(got, ref, start, weights)
+    err_s = dp_update_error(got, ref, start, stats)
+    tol_w = max(DP_UPDATE_TOL, DP_NOISE_FACTOR * dp_update_error(control, ref, start, weights))
+    tol_s = max(DP_UPDATE_TOL, DP_NOISE_FACTOR * dp_update_error(control, ref, start, stats))
+    worst = max((dp_update_error(got, ref, start, [k]), k) for k in moved)
+    tracked = [k for k in ref if k.endswith("num_batches_tracked")]
+    print(f"2 ranks against one process: bf16 losses rel err {loss_err:.3e} (tol "
+          f"{DP_LOSS_TOL}); the fp32 step: loss rel err {loss32_err:.3e}, the change of "
+          f"{len(weights)} parameters rel err {err_w:.3e} (tol {tol_w:.3e}: the control's, "
+          f"the halves swapped, {tol_w / DP_NOISE_FACTOR:.3e} x {DP_NOISE_FACTOR}, at least "
+          f"{DP_UPDATE_TOL}), of {len(stats)} running statistics {err_s:.3e} (tol "
+          f"{tol_s:.3e}), the largest of one tensor "
+          f"{worst[0]:.3e} at {worst[1]} (not held); both ranks' states bit for bit "
+          f"equal; the launcher's call {launch_s:.1f} s", flush=True)
+    check(loss_err < DP_LOSS_TOL and loss32_err < DP_LOSS_TOL,
+          f"2-rank losses off by {loss_err} (bf16), {loss32_err} (fp32)")
+    check(err_w < tol_w and err_s < tol_s,
+          f"2-rank updates off: parameters {err_w}, running statistics {err_s}")
+    check(all(torch.equal(got[k], ref[k]) for k in tracked), "num_batches_tracked differs")
+    numbers.update(loss_rel_err=loss_err, fp32_loss_rel_err=loss32_err,
+                   update_rel_err=err_w, stats_rel_err=err_s, update_tol=tol_w,
+                   stats_tol=tol_s,
+                   worst_tensor=list(worst))
+    del got, ref, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("data parallel: one rank over NCCL")
+    mesh.init("nccl", 0, 1, f"tcp://127.0.0.1:{mesh.free_port()}", timeout=120)
+    try:
+        g = torch.Generator(device=dev).manual_seed(901)
+        x = torch.randn(8, 64, 193, 193, generator=g, device=dev).to(
+            memory_format=torch.channels_last)
+        up = torch.randn(x.shape, generator=g, device=dev)
+        weight = torch.empty(64, device=dev).uniform_(0.5, 1.5, generator=g)
+        bias = torch.empty(64, device=dev).normal_(0, 0.1, generator=g)
+        outs = []
+        for forced in (False, True):
+            bn = torch.nn.Sequential(torch.nn.BatchNorm2d(64)).to(dev)
+            with torch.no_grad():
+                bn[0].weight.copy_(weight)
+                bn[0].bias.copy_(bias)
+            if forced:
+                check(convert_global_bn(bn, force=True) == 1 and
+                      isinstance(bn[0], GlobalBatchNorm2d), "convert_global_bn(force=True)")
+            xr = x.clone().requires_grad_()
+            y = bn(xr)
+            (y * up).sum().backward()
+            torch.cuda.synchronize()
+            outs.append((y, xr.grad, bn[0].weight.grad, bn[0].bias.grad,
+                         bn[0].running_mean, bn[0].running_var))
+        bn_err = max(rel_err(a, b)[0] for a, b in zip(outs[1], outs[0]))
+        print(f"GlobalBatchNorm2d over a 1-rank NCCL group against nn.BatchNorm2d (cuDNN), "
+              f"fp32 {tuple(x.shape)}: y, dx, dweight, dbias, running stats: largest rel "
+              f"err {bn_err:.3e} (tol {DP_BN_TOL})", flush=True)
+        check(bn_err < DP_BN_TOL, f"GlobalBatchNorm2d over NCCL off by {bn_err}")
+        del x, up, outs, xr, y, bn
+        model = dp_model(dev)
+        n_bn = convert_global_bn(model, force=True)
+        nccl_losses, nccl_ms, nccl_launches = dp_train(model, batches[:1], slice(None), True,
+                                                       torch.bfloat16)
+        nccl_err = abs(nccl_losses[0] - ref_losses[0]) / abs(ref_losses[0])
+        version = ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"one wrapped PSPNet-R50 step over NCCL (world 1, {n_bn} GlobalBatchNorm2d): "
+              f"loss {nccl_losses[0]:.6f} against one process's {ref_losses[0]:.6f}, rel err "
+              f"{nccl_err:.3e} (tol {DP_LOSS_TOL}); {nccl_ms[0]:.1f} ms; stem launches "
+              f"{nccl_launches}; torch's NCCL {version} [{card}]", flush=True)
+        check(nccl_err < DP_LOSS_TOL and nccl_launches == 1, "the NCCL step disagrees")
+        numbers["nccl"] = {"bn_rel_err": bn_err, "loss_rel_err": nccl_err,
+                           "ms": nccl_ms[0], "version": version}
+        del model
+    finally:
+        mesh.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"data parallel phase: {numbers['phase_s']:.1f} s [{card}]")
+    return {f"rank {rk['rank']}": rk["stem_launches"] for rk in ranks}, numbers
+
+
 def pretrained_load_phase(root, card):
     """One seeded file per remaining family (PRETRAINED_LOAD_ONLY) written
     into ``root`` and loaded into the model on the card: every tensor it
@@ -2680,6 +2995,10 @@ def run(args, workdir, t_start):
                                                   zoo_numbers)
     print("pretrained: " + json.dumps(pre_numbers))
 
+    phase("data parallel: two ranks on one card over gloo")
+    dp_launches, dp_numbers = data_parallel_phase(workdir, card)
+    print("data parallel: " + json.dumps(dp_numbers))
+
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
                  "are those of the flat_conv phase, 0 on every main path")
@@ -2699,7 +3018,9 @@ def run(args, workdir, t_start):
         **{key: stem_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
         "timings": stem_times,
-        "main_path_launches": {k: v["stem_conv_wgrad"] for k, v in paths.items()}}]
+        "main_path_launches": {k: v["stem_conv_wgrad"] for k, v in paths.items()},
+        "data_parallel_launches": {f"PSPNet-R50 2 ranks, {DP_WARMUP + DP_TIMED} steps, "
+                                   f"{k}": v for k, v in dp_launches.items()}}]
     for name, line, idx in (("flat_conv_wgrad", "segtpu/ops/flatconv.py:168", 0),
                             ("flat_conv_dgrad", "segtpu/ops/flatconv.py:205", 1)):
         first = flat_times[name][0]

@@ -14,6 +14,13 @@ Counterpart of ``segtpu/checkpoint.py``. A checkpoint is a directory
 A checkpoint is written under a temporary name and renamed into place, so a
 preempted process never leaves a torn one under ``name``. ``state.pt`` holds
 tensors in plain containers only and loads with ``weights_only=True``.
+
+Under a process group every rank calls :func:`save_checkpoint` at the same
+point: each rank's generators' states are gathered, and rank 0 alone writes
+them (under ``rng["ranks"]``) beside the unwrapped model's keys. Every rank
+waits at a barrier and then reads a checkpoint in :func:`load_checkpoint`,
+taking its own generators' states where the checkpoint has them; so a
+checkpoint saved on N ranks resumes on M.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from typing import Dict, Optional
 
 import torch
 
+from segtpu_torch.core import mesh
+
 _META = "meta.json"
 _STATE = "state.pt"
 
@@ -34,19 +43,35 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _rng_state(device: torch.device) -> Dict:
+    rng = {"cpu": torch.get_rng_state()}
+    if device.type == "cuda":
+        rng["cuda"] = torch.cuda.get_rng_state(device)
+    return rng
+
+
+def _set_rng_state(rng: Dict, device: torch.device) -> None:
+    torch.set_rng_state(rng["cpu"])
+    if device.type == "cuda" and "cuda" in rng:
+        torch.cuda.set_rng_state(rng["cuda"], device)
+
+
 def save_checkpoint(directory: str, name: str, state, epoch: int,
                     monitor_best: float, config: Dict, arch: str,
                     extra_meta: Optional[Dict] = None) -> str:
     """Write ``state`` (a :class:`~segtpu_torch.core.state.TrainState`) and
-    its metadata to ``<directory>/<name>/``; returns that path."""
+    its metadata to ``<directory>/<name>/``; returns that path. Under a
+    process group, a collective: rank 0 writes."""
     path = os.path.abspath(os.path.join(directory, name))
+    rng = _rng_state(_device_of(state.model))
+    if mesh.initialized():
+        ranks = mesh.gather_objects({k: v.cpu() for k, v in rng.items()})
+        if not mesh.is_main():
+            return path
+        rng = {**rng, "ranks": ranks}
     tmp, old = f"{path}.tmp-{os.getpid()}", f"{path}.old-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    device = _device_of(state.model)
-    rng = {"cpu": torch.get_rng_state()}
-    if device.type == "cuda":
-        rng["cuda"] = torch.cuda.get_rng_state(device)
     torch.save({"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "step": int(state.step), "rng": rng},
@@ -87,15 +112,23 @@ def load_checkpoint(path: str, state) -> Dict:
     the model's device whatever device they were saved from. They are read
     on the CPU: the optimizer moves its state to each parameter's device
     itself, and keeps the step counts of Adam-like optimizers on the CPU,
-    where torch makes them."""
+    where torch makes them.
+
+    Under a process group every rank waits for the others first (a
+    checkpoint rank 0 has just written is whole), then reads; rank r takes
+    its own generators' states where the checkpoint has r ranks or more,
+    else rank 0's, reseeded from them and r, so that the ranks' dropout
+    masks still differ."""
+    mesh.barrier()
     device = _device_of(state.model)
     saved = _load_state(path, torch.device("cpu"))
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
-    torch.set_rng_state(saved["rng"]["cpu"])
-    if device.type == "cuda" and "cuda" in saved["rng"]:
-        torch.cuda.set_rng_state(saved["rng"]["cuda"], device)
+    r, ranks = mesh.rank(), saved["rng"].get("ranks", [])
+    _set_rng_state(ranks[r] if r < len(ranks) else saved["rng"], device)
+    if r >= max(len(ranks), 1):
+        torch.manual_seed(torch.randint(2 ** 62, (1,)).item() + r)
     return read_meta(path)
 
 

@@ -113,7 +113,12 @@ def make_optimizer(
 
 
 class TrainState:
-    """Model, optimizer, per-group schedules and the update count."""
+    """Model, optimizer, per-group schedules and the update count.
+
+    ``model`` is always the unwrapped module: checkpoints hold its keys (no
+    ``module.`` prefix), so a run saved on N ranks resumes on M. Under a
+    process group of more than one rank, :meth:`data_parallel` adds the
+    wrap that the train step runs through (:attr:`train_module`)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedules: List[Callable[[int], float]]):
@@ -121,6 +126,28 @@ class TrainState:
         self.optimizer = optimizer
         self.schedules = schedules
         self.step = 0
+        self.wrapped: Optional[nn.Module] = None
+
+    def data_parallel(self) -> None:
+        """Wrap the model in ``DistributedDataParallel`` over the default
+        process group, after the optimizer was built on the unwrapped
+        module (its parameter groups and ``backbone_modules`` unchanged;
+        frozen parameters, which need no gradient, are left out of the
+        all-reduce). The wrap's first broadcast makes every rank's weights
+        rank 0's. Buffers are not broadcast: ``GlobalBatchNorm2d`` keeps the
+        running statistics equal on every rank. ``find_unused_parameters``
+        stays off: every model of the zoo uses all its parameters."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(self.model.parameters()).device
+        self.wrapped = DistributedDataParallel(
+            self.model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False)
+
+    @property
+    def train_module(self) -> nn.Module:
+        """The module a train step runs: the wrap where there is one."""
+        return self.model if self.wrapped is None else self.wrapped
 
     def apply_gradients(self) -> None:
         """One optimizer update at the schedules' rates for this step, and

@@ -6,6 +6,14 @@ logits, which stay on the device. Activations run under bf16 autocast; BN,
 loss and optimizer state stay fp32. ``compute_dtype=torch.float32`` runs
 everything in fp32 (the CPU tests).
 
+Under a process group the step runs through the state's data-parallel wrap
+(``TrainState.data_parallel``) and its loss is the global batch's
+(``losses.py``); the loss is scaled by the world size before ``backward``,
+so that the wrap's mean of the ranks' gradients is the gradient of the
+global loss, as segtpu's under its mesh.
+The stats stay each rank's own until the trainer sums them at the epoch's
+end.
+
 Batches come in as the loader makes them: NHWC images (uint8 raw pixels
 with ``norm_stats``, else normalized float) and (B, H, W) labels, already on
 the device. The NHWC -> NCHW permute is a view, so the model sees a
@@ -18,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from segtpu_torch.core import mesh
 from segtpu_torch.core.state import TrainState
 from segtpu_torch.metrics import seg_stats_from_logits
 
@@ -59,13 +68,16 @@ def make_train_step(loss_fn: Callable, ignore_index: int = 255,
     state's model and optimizer are updated in place."""
 
     def step(state: TrainState, images, labels):
-        model = state.model
+        model = state.train_module
         model.train()
         x = prep_images(images, norm_stats, compute_dtype)
         loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
                                      aux_weight, compute_dtype)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if state.wrapped is None:
+            loss.backward()
+        else:  # the wrap's mean of the ranks' gradients becomes their sum
+            (loss * mesh.world_size()).backward()
         state.apply_gradients()
         with torch.no_grad():
             stats = seg_stats_from_logits(logits.detach(), labels)

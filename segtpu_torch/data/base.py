@@ -194,15 +194,42 @@ class DataLoader:
     """Batching loader with fixed shapes. Train drops the ragged tail; val
     pads it with ignore-labeled (-100) samples. ``val_split`` holds out a
     ``RandomState(0)``-shuffled fraction of the dataset (``get_val_loader``),
-    as segtpu does. Multi-host sharding is not ported (ROADMAP)."""
+    as segtpu does.
+
+    Sharding, segtpu's across hosts and the port's within a node:
+
+    * ``num_shards``/``shard_index`` are segtpu's: each node (a segtpu
+      host) takes ``order[shard_index::num_shards]`` of every epoch's order.
+      Train runs ``floor(n / num_shards) // batch_size`` batches on every
+      node (lockstep; up to ``num_shards - 1`` trailing samples are not
+      visited); val pads the global order with sentinel slots to a multiple
+      of ``num_shards``, so that every sample is visited exactly once.
+    * within a node, ``batch_size`` is split over the node's ranks in order
+      (``core/mesh.py``'s ``local_rows``): rank l of L takes rows
+      ``[l*b/L, (l+1)*b/L)`` of each node batch, and fetches only those. A
+      batch that does not split raises.
+
+    Under a process group, at the first ``len()`` or iteration, the node's
+    ranks come from the group (``LOCAL_WORLD_SIZE`` ranks a node) and, left
+    unset, so do ``num_shards``/``shard_index`` (one shard a node); outside
+    one the loader is unsharded. A sharded loader needs a static
+    ``crop_size``: every rank must yield one shape each step. So a config's
+    ``batch_size`` is the node's, and the same config trains the same global
+    batch on 1 or N devices of a node."""
 
     def __init__(self, dataset: BaseDataset, batch_size: int, shuffle: bool,
                  num_workers: int = 4, val_split: float = 0.0,
                  drop_last: Optional[bool] = None, seed: int = 0,
                  indices: Optional[Sequence[int]] = None,
-                 worker_type: str = "thread"):
+                 worker_type: str = "thread",
+                 num_shards: Optional[int] = None,
+                 shard_index: Optional[int] = None):
         if worker_type not in ("thread", "process"):
             raise ValueError(f"worker_type {worker_type!r}: thread or process")
+        if num_shards is None and shard_index is not None:
+            raise ValueError("shard_index requires num_shards")
+        self._shard_args = (num_shards, shard_index)
+        self._shards = None  # (num_shards, shard_index, local rows), resolved once
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -242,12 +269,39 @@ class DataLoader:
             return None
         return DataLoader(self.dataset, self.batch_size, False, self.num_workers,
                           indices=self._val_indices, drop_last=False,
-                          worker_type=self.worker_type, seed=self.seed)
+                          worker_type=self.worker_type, seed=self.seed,
+                          num_shards=self._shard_args[0],
+                          shard_index=self._shard_args[1])
+
+    def shards(self) -> Tuple[int, int, Tuple[int, int]]:
+        """``(num_shards, shard_index, (lo, hi))``: this rank's node shard
+        and its rows of each node batch; resolved once."""
+        if self._shards is not None:
+            return self._shards
+        from segtpu_torch.core import mesh
+
+        num_shards, shard_index = self._shard_args
+        if num_shards is None:
+            nodes = mesh.world_size() // mesh.local_world_size()
+            num_shards, shard_index = nodes, mesh.rank() // mesh.local_world_size()
+        shard_index = shard_index or 0
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} of {num_shards} shards")
+        rows = mesh.local_rows(self.batch_size)
+        if (num_shards > 1 or rows != (0, self.batch_size)) and not self.dataset.crop_size:
+            raise ValueError(
+                "a sharded loader needs a static crop_size on the dataset (got "
+                f"crop_size={self.dataset.crop_size!r}): every rank must yield "
+                "one shape each step")
+        self._shards = (num_shards, shard_index, rows)
+        return self._shards
 
     def __len__(self):
+        num_shards = self.shards()[0]
         if self.drop_last:
-            return len(self.indices) // self.batch_size
-        return -(-len(self.indices) // self.batch_size)
+            return (len(self.indices) // num_shards) // self.batch_size
+        per_shard = -(-len(self.indices) // num_shards)
+        return -(-per_shard // self.batch_size)
 
     def _ensure_process_pool(self):
         if self._pool is None:
@@ -283,24 +337,54 @@ class DataLoader:
         mid-epoch resume continues where the interrupted run stopped."""
         self._skip_next = int(k)
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    def batch_indices(self, epoch: int) -> List[np.ndarray]:
+        """This rank's sample indices in each batch of training epoch
+        ``epoch + 1``'s order (-1 marks a padded slot)."""
+        num_shards, shard_index, (lo, hi) = self.shards()
         order = self.indices.copy()
         if self.shuffle:
-            np.random.RandomState(self.seed + self._epoch).shuffle(order)
+            np.random.RandomState(self.seed + epoch).shuffle(order)
+        if num_shards > 1:
+            if not self.drop_last:
+                pad = (-len(order)) % num_shards
+                order = np.concatenate([order, np.full(pad, -1, order.dtype)])
+            order = order[shard_index::num_shards]
+        bs = self.batch_size
+        out = []
+        for b in range(len(self)):
+            chunk = order[b * bs:(b + 1) * bs]
+            chunk = np.concatenate([chunk, np.full(bs - len(chunk), -1, order.dtype)])
+            out.append(chunk[lo:hi])
+        return out
+
+    def _pad_batch(self, rows: int):
+        """An all-padding batch: zero images, ignore-labeled (-100)."""
+        ds = self.dataset
+        crop = ds.crop_size
+        dtype = np.uint8 if ds.device_normalize else np.float32
+        return (np.zeros((rows, crop, crop, len(ds.mean)), dtype),
+                np.full((rows, crop, crop), -100, np.int32))
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        chunks = self.batch_indices(self._epoch)
         self._epoch += 1
-        epoch, seed, bs = self._epoch, self.seed, self.batch_size
+        epoch, seed = self._epoch, self.seed
         skip, self._skip_next = self._skip_next, 0
 
         def fetch(idx):
             return self.dataset.get(int(idx), rng=_sample_rng(seed, epoch, int(idx)))
 
         def batches(mapper):
-            for b in range(skip, len(self)):
-                samples = list(mapper(order[b * bs:(b + 1) * bs]))
+            for chunk in chunks[skip:]:
+                real = chunk[chunk >= 0]
+                if len(real) == 0:
+                    yield self._pad_batch(len(chunk))
+                    continue
+                samples = list(mapper(real))
                 images = np.stack([s[0] for s in samples])
                 labels = np.stack([s[1] for s in samples])
-                if len(samples) < bs:  # pad the ragged val tail
-                    pad = bs - len(samples)
+                if len(samples) < len(chunk):  # pad the ragged val tail
+                    pad = len(chunk) - len(samples)
                     images = np.concatenate(
                         [images, np.zeros((pad,) + images.shape[1:], images.dtype)])
                     labels = np.concatenate(
@@ -350,6 +434,8 @@ class DevicePrefetcher:
 
         def produce():
             try:
+                if cuda and self.device.index is not None:
+                    torch.cuda.set_device(self.device)  # this thread's: the rank's
                 for batch in self.loader:
                     host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
                     event = None

@@ -9,6 +9,17 @@ masked, never filtered, so shapes do not depend on the labels.
 
 Each loss computes in at least float32 (bf16 logits are upcast, float64
 stays float64) and returns a scalar of that dtype.
+
+Under a process group each loss is segtpu's over the global batch, as
+segtpu's losses are under its mesh: sums and denominators are summed over
+the ranks (``core/mesh.py``: :func:`~segtpu_torch.core.mesh.global_sums`
+carries the local terms' gradient, one collective a loss), the binned
+Lovász's histograms too, and the exact Lovász sorts the errors of every
+rank's pixels, gathered in rank order. Every rank then holds the same loss,
+and the gradient of its own logits; the train step scales the loss by the
+world size before ``backward``, so that the data-parallel wrap's mean of
+the ranks' gradients is the gradient of the global loss. Outside a group
+every helper is the identity.
 """
 
 from __future__ import annotations
@@ -16,11 +27,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from segtpu_torch.core import mesh
 from segtpu_torch.ops.lovasz_hist import histograms_compare
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
+
+
+def _image_mean(per_image: torch.Tensor) -> torch.Tensor:
+    """The mean of per-image losses over the global batch's images."""
+    if not mesh.initialized():
+        return per_image.mean()
+    total, count = mesh.global_sums(per_image.sum(), per_image.new_tensor(
+        float(per_image.numel())))
+    return total / count
 
 
 def _valid_mask(target: torch.Tensor, num_classes: int, ignore_index: int):
@@ -50,7 +71,8 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     lf = _at_least_f32(logits)
     valid = _valid_mask(target, logits.shape[1], ignore_index)
     ce, w = _per_pixel_ce(lf, target, valid, weight)
-    return ce.sum() / w.sum().clamp(min=1.0)
+    ce_sum, w_sum = mesh.global_sums(ce.sum(), w.sum().detach())
+    return ce_sum / w_sum.clamp(min=1.0)
 
 
 def dice_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -64,6 +86,7 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor,
     safe = torch.where(valid, target.long(), torch.zeros_like(target, dtype=torch.long))
     intersection = (probs.gather(1, safe.unsqueeze(1)).squeeze(1) * mask).sum()
     denom = (probs * mask.unsqueeze(1)).sum() + mask.sum()
+    intersection, denom = mesh.global_sums(intersection, denom)
     return 1.0 - (2.0 * intersection + smooth) / (denom + smooth)
 
 
@@ -77,7 +100,11 @@ def focal_loss(logits: torch.Tensor, target: torch.Tensor,
     valid = _valid_mask(target, logits.shape[1], ignore_index)
     ce, _ = _per_pixel_ce(lf, target, valid, alpha)
     pt = torch.exp(-ce)
-    return ((1.0 - pt) ** gamma * ce * valid.to(lf.dtype)).mean()
+    focal = (1.0 - pt) ** gamma * ce * valid.to(lf.dtype)
+    if not mesh.initialized():
+        return focal.mean()
+    total, count = mesh.global_sums(focal.sum(), lf.new_tensor(float(focal.numel())))
+    return total / count
 
 
 def ce_dice_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -117,17 +144,21 @@ def lovasz_softmax(logits: torch.Tensor, target: torch.Tensor,
     classes = torch.arange(c, device=logits.device).view(1, c, 1)
     fg = (safe == classes).to(lf.dtype)
     vmask = valid.to(lf.dtype).expand(b, c, -1)
-    if not per_image:
-        probs, fg, vmask = (t.transpose(0, 1).reshape(1, c, -1)
-                            for t in (probs, fg, vmask))
     errors = (fg - probs).abs() * vmask
+    if not per_image:
+        if mesh.initialized():
+            # every rank's pixels, in rank order: the global batch's columns
+            errors, fg, vmask = mesh.gather_rows(
+                torch.stack([errors, fg, vmask.detach()])).transpose(0, 1).flatten(1, 2)
+        errors, fg, vmask = (t.transpose(0, 1).reshape(1, c, -1)
+                             for t in (errors, fg, vmask))
     errors_sorted, perm = torch.sort(errors, dim=-1, descending=True, stable=True)
     fg_sorted, valid_sorted = fg.gather(-1, perm), vmask.gather(-1, perm)
     grad, gts = _jaccard_increments(fg_sorted, valid_sorted)
     per_class = (errors_sorted * grad * valid_sorted).sum(-1)
     present = (gts[..., 0] > 0).to(lf.dtype)
     per_set = (per_class * present).sum(-1) / present.sum(-1).clamp(min=1.0)
-    return per_set.mean() if per_image else per_set[0]
+    return _image_mean(per_set) if per_image else per_set[0]
 
 
 def lovasz_softmax_binned(logits: torch.Tensor, target: torch.Tensor,
@@ -145,6 +176,8 @@ def lovasz_softmax_binned(logits: torch.Tensor, target: torch.Tensor,
     cum_fg, cum_all, cum_err = histograms_compare(probs, tflat, bins, ignore_index)
     valid = _valid_mask(tflat, c, ignore_index)
     gts = torch.bincount(torch.where(valid, tflat, c), minlength=c + 1)[:c].to(lf.dtype)
+    # the global batch's histograms
+    cum_fg, cum_all, cum_err, gts = mesh.global_sums(cum_fg, cum_all, cum_err, gts)
     inter = gts[:, None] - cum_fg
     union = gts[:, None] + (cum_all - cum_fg)
     jacc = 1.0 - inter / union.clamp(min=1e-12)
@@ -168,6 +201,8 @@ def lovasz_hinge(logits: torch.Tensor, target: torch.Tensor,
     lf = _at_least_f32(logits).reshape(b, -1)
     tg = target.reshape(b, -1)
     if not per_image:
+        if mesh.initialized():  # every rank's pixels, in rank order
+            lf, tg = mesh.gather_rows(lf), mesh.gather_rows(tg)
         lf, tg = lf.reshape(1, -1), tg.reshape(1, -1)
     valid = tg != ignore_index
     vmask = valid.to(lf.dtype)
@@ -180,7 +215,7 @@ def lovasz_hinge(logits: torch.Tensor, target: torch.Tensor,
     relu_err = torch.where(valid_sorted > 0, errors_sorted,
                            torch.zeros_like(errors_sorted)).clamp(min=0.0)
     per_set = (relu_err * grad * valid_sorted).sum(-1)
-    return per_set.mean() if per_image else per_set[0]
+    return _image_mean(per_set) if per_image else per_set[0]
 
 
 def binary_xloss(logits: torch.Tensor, target: torch.Tensor,
@@ -192,7 +227,8 @@ def binary_xloss(logits: torch.Tensor, target: torch.Tensor,
     valid = (tg != ignore_index).to(lf.dtype)
     tgf = torch.where(tg != ignore_index, tg, torch.zeros_like(tg)).to(lf.dtype)
     loss = lf.clamp(min=0.0) - lf * tgf + torch.log1p(torch.exp(-lf.abs()))
-    return (loss * valid).sum() / valid.sum().clamp(min=1.0)
+    total, count = mesh.global_sums((loss * valid).sum(), valid.sum())
+    return total / count.clamp(min=1.0)
 
 
 def get_weights(target, num_classes: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 Counterpart of ``segtpu/metrics.py``: per-batch (correct, labeled, inter,
 union) are computed where the logits are and summed there; the host reads
-them once, in :func:`summarize`.
+them once, in :func:`summarize`. Under a process group each rank's sums are
+its own shard's until :meth:`SegStats.all_reduce`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ class SegStats(NamedTuple):
 
     def __add__(self, other: "SegStats") -> "SegStats":
         return SegStats(*(a + b for a, b in zip(self, other)))
+
+    def all_reduce(self) -> "SegStats":
+        """The sums over the ranks of the process group (one collective);
+        ``self`` outside a group. The trainer calls it once an epoch, before
+        :func:`summarize`."""
+        from segtpu_torch.core import mesh
+
+        return SegStats(*mesh.global_sums(*self))
 
 
 def seg_stats(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> SegStats:

@@ -3,7 +3,9 @@
 Counterpart of ``segtpu/nn/layers.py``. Convolutions are ``nn.Conv2d`` and
 ``nn.ConvTranspose2d``, and normalization is ``nn.BatchNorm2d`` (momentum
 0.1, eps 1e-5: biased variance to normalize, unbiased for the running
-buffer, as segtpu's BatchNorm).
+buffer, as segtpu's BatchNorm). Under a process group of more than one
+rank, :func:`convert_global_bn` makes it :class:`GlobalBatchNorm2d`, whose
+statistics are the global batch's, as segtpu's under its mesh.
 
 Initializers take an explicit ``torch.Generator``. A conv built with
 :func:`conv2d` remembers its initializers, and :func:`init_parameters`
@@ -89,6 +91,100 @@ def conv_transpose2d(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
 
 def batch_norm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+
+
+class _GlobalBN(torch.autograd.Function):
+    """Train-mode batch norm over the batch of every rank.
+
+    Forward: the per-channel count and sum are summed over the ranks, then
+    the sum of squared deviations from that global mean (two passes, so the
+    variance keeps the digits torch's own BN keeps; segtpu's E[x^2] - mean^2
+    does not). Backward: the per-channel sums of dy and dy * x_hat are
+    summed over the ranks; the weight's and the bias's gradients stay
+    local, for the data-parallel wrap to sum. Statistics in at least fp32;
+    y and dx in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
+        from segtpu_torch.core import mesh
+
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        xf = x if x.dtype == torch.float64 else x.float()
+        local = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)])
+        total = mesh.global_sum(local)
+        count = total[c]
+        mean = total[:c] / count
+        xc = xf - mean.view(1, c, 1, 1)
+        var = mesh.global_sum((xc * xc).sum(dims)) / count
+        invstd = torch.rsqrt(var + eps)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
+            unbiased = var * count / (count - 1)
+            running_var.mul_(1 - momentum).add_(unbiased.to(running_var.dtype),
+                                                alpha=momentum)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        y = xc * (invstd * weight.to(xf.dtype)).view(1, c, 1, 1) + bias.to(xf.dtype).view(
+            1, c, 1, 1)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from segtpu_torch.core import mesh
+
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        xf = x if x.dtype == torch.float64 else x.float()
+        dyf = dy.to(xf.dtype)
+        xhat = (xf - mean.view(1, c, 1, 1)) * invstd.view(1, c, 1, 1)
+        sum_dy, sum_dy_xhat = dyf.sum(dims), (dyf * xhat).sum(dims)
+        total = mesh.global_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        mean_dy, mean_dy_xhat = (total[:c] / count).view(1, c, 1, 1), (
+            total[c:] / count).view(1, c, 1, 1)
+        scale = (weight.to(xf.dtype) * invstd).view(1, c, 1, 1)
+        dx = scale * (dyf - mean_dy - xhat * mean_dy_xhat)
+        return (dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype),
+                None, None, None, None)
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode statistics are those of the global
+    batch, over every rank of the process group: segtpu's BatchNorm under
+    its mesh. Through :class:`_GlobalBN` inside a process group; outside
+    one, and in eval mode (``freeze_bn`` included), it is ``nn.BatchNorm2d``
+    itself. The running variance is unbiased with the global count. Same
+    parameters, buffers and state-dict keys as ``nn.BatchNorm2d``."""
+
+    def forward(self, x):
+        from segtpu_torch.core import mesh
+
+        if not (self.training and mesh.initialized()):
+            return super().forward(x)
+        if x.numel() // x.shape[1] * mesh.world_size() <= 1:
+            raise ValueError(f"Expected more than 1 value per channel when training, "
+                             f"got input size {tuple(x.shape)} on "
+                             f"{mesh.world_size()} rank(s)")
+        self.num_batches_tracked.add_(1)
+        return _GlobalBN.apply(x, self.weight, self.bias, self.running_mean,
+                               self.running_var, self.momentum, self.eps)
+
+
+def convert_global_bn(model: nn.Module, force: bool = False) -> int:
+    """Make every ``nn.BatchNorm2d`` of ``model`` a :class:`GlobalBatchNorm2d`
+    in place (its class changes; its parameters, buffers and keys stay), when
+    the process group has more than one rank or ``force`` is set; returns how
+    many were converted. At one rank nothing changes."""
+    from segtpu_torch.core import mesh
+
+    if mesh.world_size() == 1 and not force:
+        return 0
+    n = 0
+    for m in model.modules():
+        if type(m) is nn.BatchNorm2d:
+            m.__class__ = GlobalBatchNorm2d
+            n += 1
+    return n
 
 
 class FreezableBN(nn.Module):

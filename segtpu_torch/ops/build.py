@@ -5,11 +5,15 @@ into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout. The library's file name
 carries a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. Nothing is built at import.
+Processes that start at once (the ranks of a data-parallel run) build under
+a lock on ``build/kernels/.lock``: the first builds each missing library,
+the others wait for it and load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -63,16 +67,27 @@ def _finish(name: str, target: Path, proc, tmp: Path) -> str:
     return ""
 
 
+def build_all(names) -> None:
+    """Build those of ``names`` whose library is missing, one nvcc each, all
+    started together, under the build directory's lock (released when the
+    file closes, also by a process that dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        builds = [(name, target, *_start(name, target))
+                  for name, target in ((n, _target(n)) for n in names)
+                  if not target.exists()]
+        errors = [e for e in (_finish(*build) for build in builds) if e]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load_all(names) -> Dict[str, ctypes.CDLL]:
-    """The kernel libraries ``names``. Those not built yet are built by one
-    nvcc each, all started together."""
+    """The kernel libraries ``names``, built first where missing."""
     with _lock:
         pending = [(name, _target(name)) for name in names if name not in _loaded]
-        builds = [(name, target, *_start(name, target))
-                  for name, target in pending if not target.exists()]
-        errors = [e for e in (_finish(*build) for build in builds) if e]
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        if pending:
+            build_all([name for name, _ in pending])
         for name, target in pending:
             _loaded[name] = ctypes.CDLL(str(target))
         return {name: _loaded[name] for name in names}

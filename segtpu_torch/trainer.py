@@ -19,6 +19,20 @@ default), segtpu's events go to ``<log_dir>/<name>/<timestamp>/`` (log_dir
 the val metrics and the 15-row val grid of input, target and prediction.
 ``profile: N`` traces the first N steps of the first epoch with
 ``torch.profiler`` into ``<checkpoint dir>/profile/``, a Chrome trace.
+
+Data parallel, with segtpu's semantics: under a process group of more than
+one rank (``core/mesh.py``; ``segtpu_torch.train`` or torchrun starts one
+process a device), BatchNorm's statistics, the loss and the gradient are
+the global batch's (``GlobalBatchNorm2d``, ``losses.py``, the state's
+``DistributedDataParallel`` wrap), the loaders shard each epoch, and the
+seg stats and val loss are summed over the ranks at the epoch's end. Rank 0
+alone writes config.json, checkpoints (every rank takes part in their
+save), events, the val grid, the Logger's entries and the profile; the run
+directory's timestamp is rank 0's. A SIGTERM to any rank stops every rank
+at the same iteration: the flag is agreed at each iteration boundary.
+``trainer.devices: N`` and ``trainer.device_ids`` ("0,2" or ``[0, 2]``)
+must match the group's size; a rank's device is ``cuda:<device_ids[local
+rank]>`` (or ``cuda:<local rank>``) unless the caller names one.
 """
 
 from __future__ import annotations
@@ -40,10 +54,12 @@ from segtpu_torch import losses as loss_lib
 from segtpu_torch import metrics as metrics_lib
 from segtpu_torch import resolve_device
 from segtpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from segtpu_torch.core import mesh
 from segtpu_torch.core.state import TrainState, make_optimizer
 from segtpu_torch.core.steps import make_eval_step, make_train_step
 from segtpu_torch.data import DevicePrefetcher
 from segtpu_torch.metrics import AverageMeter, SegStats
+from segtpu_torch.nn.layers import convert_global_bn
 from segtpu_torch.pretrained import maybe_load_pretrained
 from segtpu_torch.utils.helpers import colorize_mask, denormalize, dir_exists
 from segtpu_torch.utils.logger import setup_logging
@@ -52,9 +68,46 @@ from segtpu_torch.utils.tensorboard import SummaryWriter
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: segtpu's trainer keys that the port does not implement yet: each is
 #: ignored with a warning
-_NOT_PORTED = ("remat", "devices", "device_ids")
+_NOT_PORTED = ("remat",)
+#: the stride between the ranks' dropout seeds
+_RANK_SEED_STRIDE = 1_000_003
 #: the val batches whose first image goes into the grid
 _VIZ_BATCHES = 15
+
+
+def device_ids(cfg_trainer: Dict) -> Optional[list]:
+    """``trainer.device_ids`` as a list of ints ("0,2" or ``[0, 2]``), or
+    else the first ``trainer.devices``; None when neither is set (every
+    visible device)."""
+    ids = cfg_trainer.get("device_ids")
+    if ids is not None:
+        if isinstance(ids, str):
+            ids = [i for i in ids.split(",") if i.strip()]
+        return [int(i) for i in ids]
+    if cfg_trainer.get("devices") is not None:
+        return list(range(int(cfg_trainer["devices"])))
+    return None
+
+
+def rank_device(device, cfg_trainer: Dict) -> torch.device:
+    """This rank's device. The ``devices``/``device_ids`` keys must ask for
+    as many devices as the process group has ranks (a run on N devices is
+    started as N processes); on the card, a device without an index is
+    ``cuda:<device_ids[local rank]>``, or ``cuda:<local rank>`` in a group
+    of more than one rank. A CUDA index that is not visible raises."""
+    dev = resolve_device(device)
+    ids, world = device_ids(cfg_trainer), mesh.world_size()
+    if ids is not None and len(ids) != world:
+        raise ValueError(
+            f"trainer.devices/device_ids ask for {len(ids)} device(s) but this process "
+            f"group has {world} rank(s): start the run with `python -m "
+            f"segtpu_torch.train` (one process a device) or torchrun")
+    if dev.type == "cuda":
+        if dev.index is None and (ids or world > 1):
+            dev = torch.device("cuda", ids[mesh.local_rank()] if ids else mesh.local_rank())
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev} asked for, {torch.cuda.device_count()} GPU(s) visible")
+    return dev
 
 
 class TrainingPreempted(RuntimeError):
@@ -73,25 +126,29 @@ class Trainer:
     def __init__(self, model, loss, config: Dict, train_loader,
                  val_loader=None, device="cuda", resume: Optional[str] = None,
                  train_logger=None):
-        self.device = resolve_device(device)
-        setup_logging()
+        cfg_trainer = config["trainer"]
+        self.device = rank_device(device, cfg_trainer)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        self.world = mesh.world_size()
+        # the other ranks log warnings only: rank 0 speaks for the run
+        setup_logging(logging.INFO if mesh.is_main() else logging.WARNING)
         self.logger = logging.getLogger(f"segtpu_torch.{type(self).__name__}")
         self.config = config
-        self.train_logger = train_logger
+        self.train_logger = train_logger if mesh.is_main() else None
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.num_classes = train_loader.dataset.num_classes
         self.ignore_index = config.get("ignore_index", 255)
         self.loss_fn = loss_lib.get_loss(loss) if isinstance(loss, str) else loss
 
-        cfg_trainer = config["trainer"]
         model_parallel = int(cfg_trainer.get("model_parallel", 1))
         spatial = bool(cfg_trainer.get("spatial", False))
         if model_parallel > 1 or spatial:
             raise ValueError(
                 f"trainer.model_parallel={model_parallel}/spatial={spatial} need a "
-                f"'model' mesh axis; segtpu_torch runs on one device and has no "
-                f"model axis (ROADMAP)")
+                f"'model' mesh axis; segtpu_torch's devices form the data axis "
+                f"alone: it has no model axis (ROADMAP)")
         dtype_name = cfg_trainer.get("compute_dtype", "bfloat16")
         if dtype_name not in _DTYPES:
             raise ValueError(f"unsupported trainer.compute_dtype {dtype_name!r}; "
@@ -106,7 +163,8 @@ class Trainer:
                                     f"(ROADMAP); ignored")
         self.start_epoch = 1
         self._resume_iter = 0
-        self._preempted = False
+        self._sigterm = False  # set by the handler, on this rank
+        self._preempted = False  # agreed by every rank
         #: the TrainingPreempted that ended the last train(), else None
         self.preempted: Optional[TrainingPreempted] = None
         self.do_validation = cfg_trainer.get("val", True) and val_loader is not None
@@ -117,6 +175,7 @@ class Trainer:
         model = model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
+        convert_global_bn(model)  # at one rank, nothing changes
         opt_cfg = config.get("optimizer", {"type": "SGD", "args": {}})
         sched_cfg = config.get("lr_scheduler", {"type": "Poly", "args": {}})
         optimizer, schedules = make_optimizer(
@@ -132,11 +191,15 @@ class Trainer:
             **opt_cfg.get("args", {}))
         self.state = TrainState(model, optimizer, schedules)
         # in place, so the optimizer keeps its parameters; before a resume,
-        # which overwrites it
+        # which overwrites it, and before the wrap, whose first broadcast
+        # then leaves every rank with rank 0's weights
         maybe_load_pretrained(model, config)
+        if self.world > 1:
+            self.state.data_parallel()
         # dropout draws from the global generator: seeded from the config as
-        # segtpu seeds its dropout key (seed + 1), restored by a resume
-        torch.manual_seed(config.get("seed", 0) + 1)
+        # segtpu seeds its dropout key (seed + 1), each rank on its own
+        # stream, restored by a resume
+        torch.manual_seed(config.get("seed", 0) + 1 + _RANK_SEED_STRIDE * mesh.rank())
 
         # uint8 transport: the loaders ship raw pixels and the steps
         # normalize on the device; train and val must agree on it
@@ -166,18 +229,20 @@ class Trainer:
         self.improved = False
         self.not_improved_count = 0
 
-        start_time = datetime.datetime.now().strftime("%m-%d_%H-%M")
+        start_time = mesh.broadcast_object(
+            datetime.datetime.now().strftime("%m-%d_%H-%M"))
         self.checkpoint_dir = os.path.join(cfg_trainer.get("save_dir", "saved/"),
                                            config.get("name", "run"), start_time)
-        dir_exists(self.checkpoint_dir)
-        with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as f:
-            json.dump(config, f, indent=4, sort_keys=True)
+        if mesh.is_main():
+            dir_exists(self.checkpoint_dir)
+            with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as f:
+                json.dump(config, f, indent=4, sort_keys=True)
         self.writer = None
-        if cfg_trainer.get("tensorboard", True):
+        if cfg_trainer.get("tensorboard", True) and mesh.is_main():
             self.writer = SummaryWriter(os.path.join(
                 cfg_trainer.get("log_dir", "saved/runs"), config.get("name", "run"),
                 start_time))
-        self.profile_steps = cfg_trainer.get("profile", 0)
+        self.profile_steps = cfg_trainer.get("profile", 0) if mesh.is_main() else 0
         self.profile_dir = os.path.join(self.checkpoint_dir, "profile")
         self.wrt_step = 0
         if resume:
@@ -211,7 +276,7 @@ class Trainer:
         """SIGTERM sets a flag that the loop reads at the next iteration
         boundary. Signal handlers can only be set from the main thread;
         elsewhere (a trainer driven from another thread) this is a no-op."""
-        self._preempted = False
+        self._sigterm = self._preempted = False
         self._handler_installed = False
         if threading.current_thread() is threading.main_thread():
             self._prev_sigterm = signal.signal(signal.SIGTERM, self._on_preempt)
@@ -227,7 +292,15 @@ class Trainer:
             self._prev_sigterm = None
 
     def _on_preempt(self, signum, frame):
-        self._preempted = True
+        self._sigterm = True
+
+    def _agree_preempted(self) -> bool:
+        """Whether any rank has had a SIGTERM (a collective of the host-side
+        group under a process group: every rank calls it at the same
+        points); kept in ``self._preempted``."""
+        self._preempted = (mesh.agree_any(self._sigterm) if self.world > 1
+                           else self._sigterm)
+        return self._preempted
 
     def _save_latest(self, epoch: int, extra_meta: Optional[Dict] = None):
         save_checkpoint(self.checkpoint_dir, "checkpoint-latest", self.state,
@@ -237,7 +310,7 @@ class Trainer:
     def _train_loop(self):
         for epoch in range(self.start_epoch, self.epochs + 1):
             results = self._train_epoch(epoch)
-            if self._preempted:
+            if self._agree_preempted():
                 # SIGTERM on the epoch's last iteration: keep the finished
                 # epoch now, before a long validation can outlast the grace
                 # period; no resume_iter, so the resume starts at epoch + 1
@@ -277,7 +350,7 @@ class Trainer:
 
             if epoch % self.save_period == 0:
                 self._save_checkpoint(epoch, save_best=self.improved)
-            if self._preempted:
+            if self._agree_preempted():
                 # SIGTERM during validation or the bookkeeping after it
                 self._save_latest(epoch)
                 raise TrainingPreempted(f"after epoch {epoch}")
@@ -319,7 +392,7 @@ class Trainer:
                 n_iters += 1
                 it_abs = it + skip  # the position in the epoch's order
                 if it_abs + 1 < iters_per_epoch and (
-                        self._preempted or (self.save_per_iters and
+                        self._agree_preempted() or (self.save_per_iters and
                                             (it_abs + 1) % self.save_per_iters == 0)):
                     # the state holds this iteration's update; a resume
                     # replays the order from it_abs + 1 (a SIGTERM on the last
@@ -342,8 +415,9 @@ class Trainer:
         finally:
             if profiler is not None:
                 self._stop_profile(profiler)
+        # the loss is the global batch's on every rank; the stats are summed
         avg_loss = float(loss_acc) / max(n_iters, 1)
-        log = self._log_dict("loss", avg_loss, total)
+        log = self._log_dict("loss", avg_loss, total.all_reduce())
         if self.writer is not None:
             for k in ("Pixel_Accuracy", "Mean_IoU"):
                 self.writer.add_scalar(f"train/{k}", log[k], self.wrt_step)
@@ -393,8 +467,11 @@ class Trainer:
             total = total + stats
             loss_acc += loss * stats.labeled
             weight_acc += stats.labeled
+        # each rank weighs the global loss by its own valid pixels: the sums
+        # over the ranks weigh it by the global batch's
+        loss_acc, weight_acc = mesh.global_sums(loss_acc, weight_acc)
         avg_loss = float(loss_acc) / max(float(weight_acc), 1e-12)
-        log = self._log_dict("val_loss", avg_loss, total)
+        log = self._log_dict("val_loss", avg_loss, total.all_reduce())
         if self.writer is not None:
             self._write_val_grid(viz, epoch)
             self.wrt_step = epoch * max(len(self.train_loader), 1)

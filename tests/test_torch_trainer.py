@@ -45,9 +45,9 @@ def _config(**trainer):
     }
 
 
-def _run_cli(tmp_path, *args):
+def _run_cli(tmp_path, *args, config=None):
     cfg = tmp_path / "config.json"
-    cfg.write_text(json.dumps(_config()))
+    cfg.write_text(json.dumps(config or _config()))
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1",
            "HOME": str(tmp_path), "TMPDIR": str(tmp_path)}
     return subprocess.run([sys.executable, "-m", "segtpu_torch.train",
@@ -100,28 +100,97 @@ def _cpu_trainer(cfg):
                                   {"model_parallel": 4, "spatial": True}])
 def test_trainer_raises_on_a_model_axis(keys):
     """segtpu raises when ``model_parallel`` or ``spatial`` asks for a model
-    axis its mesh lacks; the port runs on one device and has none."""
-    with pytest.raises(ValueError, match="runs on one device and has no model axis"):
+    axis its mesh lacks; the port's devices form a data axis alone."""
+    with pytest.raises(ValueError, match="form the data axis alone: it has no model axis"):
         _cpu_trainer(_config(**keys))
 
 
-def test_trainer_warns_on_remat_and_device_keys(tmp_path):
-    """``remat``, ``devices`` and ``device_ids`` are ignored with a warning
-    each; ``model_parallel: 1`` and ``spatial: false`` are accepted."""
+def _warnings(cfg):
+    """The Trainer's warnings while it is built from ``cfg`` on the CPU."""
     records = []
     handler = logging.Handler()
     handler.emit = records.append
     logger = logging.getLogger("segtpu_torch.Trainer")
     logger.addHandler(handler)
     try:
-        _cpu_trainer(_config(remat=True, devices=2, device_ids="0,1",
-                             model_parallel=1, spatial=False, save_dir=str(tmp_path),
-                             log_dir=str(tmp_path / "runs")))
+        trainer = _cpu_trainer(cfg)
     finally:
         logger.removeHandler(handler)
-    msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
-    assert msgs == [f"trainer.{k} is not ported yet (ROADMAP); ignored"
-                    for k in ("remat", "devices", "device_ids")]
+    return trainer, [r.getMessage() for r in records if r.levelno == logging.WARNING]
+
+
+def test_trainer_warns_on_remat_and_device_keys(tmp_path):
+    """``remat`` is ignored with a warning; ``devices`` and ``device_ids``
+    are honoured (``test_trainer_honours_the_device_keys``), so they warn no
+    more; ``model_parallel: 1`` and ``spatial: false`` are accepted."""
+    _, msgs = _warnings(_config(remat=True, devices=1, device_ids="0", model_parallel=1,
+                                spatial=False, save_dir=str(tmp_path),
+                                log_dir=str(tmp_path / "runs")))
+    assert msgs == ["trainer.remat is not ported yet (ROADMAP); ignored"]
+
+
+@pytest.mark.parametrize("keys", [{"devices": 1}, {"device_ids": "0"},
+                                  {"device_ids": [0]}])
+def test_trainer_honours_the_device_keys(keys, tmp_path):
+    """One device asked for in one process: no warning, no process group,
+    no GlobalBatchNorm2d, no wrap; more than the process group's ranks
+    raise, as a run on N devices is N processes."""
+    from segtpu_torch.nn.layers import GlobalBatchNorm2d
+
+    dirs = dict(save_dir=str(tmp_path), log_dir=str(tmp_path / "runs"))
+    trainer, msgs = _warnings(_config(**keys, **dirs))
+    assert msgs == [] and trainer.world == 1 and trainer.state.wrapped is None
+    assert not any(isinstance(m, GlobalBatchNorm2d) for m in trainer.model.modules())
+    assert not torch.distributed.is_initialized()
+    for more in ({"devices": 2}, {"device_ids": "0,1"}, {"device_ids": [0, 2]}):
+        with pytest.raises(ValueError, match=r"ask for 2 device\(s\) but this process "
+                                             r"group has 1 rank"):
+            _cpu_trainer(_config(**more, **dirs))
+
+
+def test_cli_device_ids_and_the_devices_a_run_takes(monkeypatch):
+    """``-d 0,1`` sets ``trainer.device_ids``; a run takes device_ids, else
+    the first ``devices``, else every visible GPU, and raises for more GPUs
+    than are visible; on the CPU, ``devices`` processes."""
+    from segtpu_torch.train import apply_device_arg, plan_devices
+
+    cfg, dev = apply_device_arg(_config(), "0,1")
+    assert (cfg["trainer"]["device_ids"], dev) == ("0,1", "cuda")
+    assert apply_device_arg(_config(), "cpu") == (_config(), "cpu")
+    with pytest.raises(SystemExit):
+        apply_device_arg(_config(), "gpu0")
+    assert plan_devices(_config(devices=2), "cpu") == ["cpu", "cpu"]
+    assert plan_devices(_config(), "cpu") == ["cpu"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert plan_devices(cfg, "cuda") == ["cuda:0", "cuda:1"]
+    assert plan_devices(_config(device_ids=[1]), "cuda") == ["cuda:1"]
+    assert plan_devices(_config(devices=1), "cuda") == ["cuda:0"]
+    assert plan_devices(_config(), "cuda") == ["cuda:0", "cuda:1"]
+    for keys in ({"devices": 3}, {"device_ids": "0,2"}):
+        with pytest.raises(ValueError, match="asked for, 2 visible"):
+            plan_devices(_config(**keys), "cuda")
+    with pytest.raises(ValueError, match="repeat one"):
+        plan_devices(_config(device_ids="1,1"), "cuda")
+
+
+def test_cli_trains_on_two_cpu_processes(tmp_path):
+    """``trainer.devices: 2`` with ``--device cpu`` starts 2 gloo processes:
+    rank 0 alone logs the run (two epochs, a finite loss and a Mean_IoU in
+    each) and writes its files."""
+    cfg = _config(devices=2, save_period=1, save_dir=str(tmp_path / "saved"),
+                  log_dir=str(tmp_path / "runs"))
+    res = _run_cli(tmp_path, "--device", "cpu", config=cfg)
+    assert res.returncode == 0, res.stderr[-3000:]
+    losses = [float(v) for v in re.findall(r"TRAIN epoch \d \| loss ([0-9.naif]+)",
+                                           res.stderr)]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert len(re.findall(r"VAL   epoch \d \| .*mIoU ([0-9.]+)", res.stderr)) == 2
+    assert res.stderr.count("kernel launches: stem_conv_wgrad=0") == 1
+    run_dir, = (tmp_path / "saved" / "TinyPSP").iterdir()
+    assert sorted(p.name for p in run_dir.iterdir()) == [
+        "best_model", "checkpoint-epoch1", "checkpoint-epoch2", "config.json"]
+    assert len(list((tmp_path / "runs").glob("*/*/events.out.tfevents.*"))) == 1
 
 
 @pytest.mark.parametrize("dtype", ["float16", "bf16", "float64"])
