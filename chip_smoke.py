@@ -175,7 +175,36 @@ Phases, each announced on its own line:
     backward against ``nn.BatchNorm2d`` within DP_BN_TOL, and one wrapped
     PSPNet-R50 step at batch 8, its loss against the one-process step's;
     torch's NCCL version;
-19. the script's time, the ``kernels`` JSON line (each kernel's launches on
+19. model axis: (a) tensor parallelism and (b) spatial sharding, each on
+    two ranks over gloo on the one card (one launcher call, the two modes
+    in turn): PSPNet-R50 with the stem kernel at 769x769, batch 8 (the
+    model ranks hold the same images), bf16, the convs of 256 or more
+    channels sharded (``core/tensor_parallel.py``); under (b) each rank
+    also holds its band of rows (392 / 377, ``core/spatial.py``), as
+    ``trainer.spatial`` sets both. MA_STEPS steps and one fp32 step from the
+    same start, held against one process as the data-parallel phase holds
+    its ranks (DP_LOSS_TOL, the control); one stem launch a step on each
+    rank; per-rank ms/step, the parameter and optimizer bytes and the
+    steps' peak above the memory held before them (activations and
+    gradients), each beside one process's: under (a) the parameter and
+    optimizer bytes, under (b) the activation peak, must lie below it.
+    Under (b) the stem kernel on the band each rank's step gave it (x with
+    its halo rows, dy, ``pad_h`` (1, 0) and (0, 1), caught by hooks)
+    against its plain version on the same tensors, and the two bands'
+    summed dW against the plain dW of the whole image, within
+    WGRAD_REL_TOL. Then (a) and (b) through the Trainer: each rank runs
+    ``segtpu_torch.train.main`` with ``trainer.model_parallel``,
+    ``trainer.spatial`` and ``device_ids`` "0,0" in the launcher's gloo
+    group, MA_TRAINER_STEPS steps and validation: one stem launch a step,
+    the ranks' losses and gathered states equal, per-rank ms/step of the
+    steps after the first, and under (b) the val grid's image whole.
+    (c) In one process: ``trainer.remat`` through ``segtpu_torch.train.main``
+    on the main path's batches, its losses within DP_LOSS_TOL of the main
+    path's and its step times beside them; ``remat_backbone`` and
+    ``s2d_stem`` (without the stem kernel, which wins over it) for
+    MA_KNOB_STEPS steps beside one process's; each with the steps' peak
+    above the memory held before them;
+20. the script's time, the ``kernels`` JSON line (each kernel's launches on
     every path above), then the card's name and power limit, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -281,6 +310,14 @@ DP_NOISE_FACTOR = 3
 # order, relative to the largest value
 DP_BN_TOL = 1e-4
 DP_NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+# the model axis phase: steps a mode on the data parallel phase's first
+# batches, held against one process (a tensor-parallel step over gloo on one
+# card takes about 10 s: the channel gathers go through host memory); then
+# the Trainer's steps a mode through segtpu_torch.train.main with the config
+# keys, the first untimed, and the knobs' steps in one process
+MA_STEPS = 2
+MA_TRAINER_STEPS = 3
+MA_KNOB_STEPS = 3
 # kernel-name substrings -> category of the traced step, first match wins
 CATEGORIES = [
     ("stem_wgrad", "stem weight gradient (segtpu_torch CUDA kernel)"),
@@ -754,16 +791,16 @@ class StepRecorder:
         def make_recorded(*args, **kwargs):
             step = make(*args, **kwargs)
 
-            def recorded(state, images, labels):
+            def recorded(state, images, labels, *rows):
                 if not self.on:
-                    return step(state, images, labels)
+                    return step(state, images, labels, *rows)
                 from segtpu_torch.ops import conv_wgrad as cw
 
                 if state.step == self.snap_before and self.snap is None:
                     self.snap = snapshot(state)
                 before = cw.stem_conv_wgrad.launches
                 t_in = time.perf_counter()
-                loss, stats = step(state, images, labels)
+                loss, stats = step(state, images, labels, *rows)
                 sample = (labels[:, ::7, ::7].cpu().numpy().tobytes()
                           + images[:, ::7, ::7].cpu().numpy().tobytes())
                 self.steps.append({
@@ -2364,14 +2401,14 @@ def dp_rank(device, workdir):
     model = dp_model(device)
     converted = convert_global_bn(model)
     losses, ms, launches = dp_train(model, batches, rows, True, torch.bfloat16)
-    spread = dp_spread(model)
+    spread = dp_spread(model.state_dict())
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     del model
     torch.cuda.empty_cache()
     model = dp_model(device)
     convert_global_bn(model)
     loss32, _, launches32 = dp_train(model, batches[:1], rows, True, torch.float32)
-    spread = max(spread, dp_spread(model))
+    spread = max(spread, dp_spread(model.state_dict()))
     flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=device)
     allreduce_ms = []
     for _ in range(3):
@@ -2391,12 +2428,13 @@ def dp_rank(device, workdir):
                    "rank0_spread": spread, "peak_gib": peak}, f)
 
 
-def dp_spread(model):
-    """The largest |this rank's tensor - rank 0's| over the model's state."""
+def dp_spread(sd):
+    """The largest |this rank's tensor - rank 0's| over the state dict
+    ``sd``."""
     import torch.distributed as dist
 
     spread = 0.0
-    for v in model.state_dict().values():
+    for v in sd.values():
         ref = v.clone()
         dist.broadcast(ref, 0)
         spread = max(spread, float((v.double() - ref.double()).abs().max()))
@@ -2553,6 +2591,556 @@ def data_parallel_phase(workdir, card):
     numbers["phase_s"] = time.perf_counter() - t_phase
     print(f"data parallel phase: {numbers['phase_s']:.1f} s [{card}]")
     return {f"rank {rk['rank']}": rk["stem_launches"] for rk in ranks}, numbers
+
+
+def ma_steps(model, batches, dtype, rows=None, model_axis=False):
+    """SGD steps of ``model`` on ``batches`` (this rank's rows with
+    ``rows``), the stem launches counted from 0; the optimizer built after
+    any sharding. Returns (losses, ms a step, stem launches, held bytes
+    before the timed steps, the timed steps' peak above them, optimizer
+    state bytes)."""
+    import torch
+
+    from segtpu_torch import losses
+    from segtpu_torch.core.state import TrainState, make_optimizer
+    from segtpu_torch.core.steps import make_train_step
+
+    opt, scheds = make_optimizer(model, lr=0.01, momentum=0.9, weight_decay=1e-4,
+                                 num_epochs=1, iters_per_epoch=10)
+    state = TrainState(model, opt, scheds)
+    if model_axis:
+        state.model_axis()
+    step = make_train_step(losses.cross_entropy, compute_dtype=dtype, norm_stats=DP_NORM)
+    reset_launches()
+    out, ms, held, peak = [], [], 0, 0
+    for i, (images, labels) in enumerate(batches):
+        args = ()
+        if rows is not None:
+            lo, hi = rows.mine
+            images, labels = images[:, lo:hi].contiguous(), labels[:, lo:hi].contiguous()
+            args = (rows,)
+        torch.cuda.synchronize()
+        if i == 1:  # the parameters, gradients, optimizer state and batches held
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = step(state, images, labels, *args)
+        out.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if len(batches) > 1:
+        peak = torch.cuda.max_memory_allocated() - held
+    opt_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
+                    for t in st.values() if torch.is_tensor(t))
+    return out, ms, read_launches()["stem_conv_wgrad"], held, peak, opt_bytes
+
+
+def capture_stem_band(model, cap):
+    """A forward hook on the stem kernel's conv that fills ``cap`` on its
+    first call with grad: the band x with its halo rows that ``StemConv``
+    saved for its backward, its ``pad_h``, the band without the halo, both
+    maps' layouts, and (through a hook on the output) the dy the backward
+    gets. Returns the hook's handle."""
+    import torch
+
+    from segtpu_torch.core import spatial
+    from segtpu_torch.ops.conv_wgrad import StemConv2d
+
+    def hook(m, inputs, out):
+        if "x" in cap or not torch.is_grad_enabled():
+            return
+        node = out.grad_fn
+        cap.update(x=node.saved_tensors[0].detach(), pad_h=tuple(node.pad_h), k=node.k,
+                   band=inputs[0].detach(), rows_in=spatial.rows_of(inputs[0]),
+                   rows_out=spatial.rows_of(out))
+        out.register_hook(lambda g: cap.__setitem__("dy", g.detach()))
+
+    stem = next(m for m in model.modules() if isinstance(m, StemConv2d))
+    return stem.register_forward_hook(hook)
+
+
+def check_stem_band(cap):
+    """The stem kernel on the band that the spatial step gave it (``cap``,
+    see ``capture_stem_band``): the wrapper against its plain version on
+    the same card tensors with the same ``pad_h``, then the model ranks'
+    summed dW against the plain dW of the whole image (each rank's rows of
+    x and dy gathered). A collective of the model group; launches made here
+    are not the path's. Returns the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from segtpu_torch.core import mesh
+    from segtpu_torch.ops import conv_wgrad as cw
+
+    k, pad = cap["k"], cap["pad_h"]
+    xh, dyh = cap["x"].permute(0, 2, 3, 1), cap["dy"].permute(0, 2, 3, 1)
+    got = cw.stem_conv_wgrad(xh, dyh, kernel=k, pad_h=pad)
+    ref = cw.stem_conv_wgrad_plain(xh, dyh, kernel=k, pad_h=pad)
+    err, abs_err = rel_err(got, ref)
+
+    def whole(t, rows):
+        lo, hi = rows.mine
+        buf = t.new_zeros(t.shape[:2] + (rows.size,) + t.shape[3:])
+        buf[:, :, lo:hi] = t
+        dist.all_reduce(buf, group=mesh.model_group())
+        return buf
+
+    x_all = whole(cap["band"].float(), cap["rows_in"])
+    dy_all = whole(cap["dy"].float(), cap["rows_out"])
+    want = cw.stem_conv_wgrad_plain(x_all.permute(0, 2, 3, 1), dy_all.permute(0, 2, 3, 1),
+                                    kernel=k)
+    summed = got.clone()
+    dist.all_reduce(summed, group=mesh.model_group())
+    sum_err, sum_abs = rel_err(summed, want)
+    return {"x": list(xh.shape), "dy": list(dyh.shape), "pad_h": list(pad),
+            "rows": list(cap["rows_in"].mine), "rel_err": err, "max_abs_err": abs_err,
+            "sum_rel_err": sum_err, "sum_max_abs_err": sum_abs,
+            "whole_x": list(x_all.shape), "whole_dy": list(dy_all.shape)}
+
+
+def ma_rank(device, workdir):
+    """One rank of the model axis phase: tensor parallelism, then spatial
+    sharding (with the tensor parallelism segtpu's trainer sets beside
+    it); the bf16 steps, then one fp32 step from the start, whose state
+    rank 0 saves in the one-device layout. Writes ``ma-rank<r>.json``."""
+    import torch
+
+    from segtpu_torch.core import mesh, spatial, tensor_parallel
+    from segtpu_torch.nn.layers import convert_global_bn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    batches = dp_batches(device)[:MA_STEPS]
+    res = {"rank": mesh.rank(), "device": str(device)}
+    for mode in ("tp", "spatial"):
+        mesh.set_model_axis(2, spatial=mode == "spatial")
+        rows = spatial.split(CROP, 8, 2) if mode == "spatial" else None
+        got = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            model = dp_model(device)
+            convert_global_bn(model)
+            sharded = tensor_parallel.shard_model(model)
+            heights, cap = [], {}
+            hooks = [model.layer4.register_forward_hook(
+                lambda m, i, o: heights.append(o.shape[2]))]
+            if rows is not None and dtype == torch.bfloat16:
+                hooks.append(capture_stem_band(model, cap))
+            steps = batches if dtype == torch.bfloat16 else batches[:1]
+            losses, ms, launches, held, peak, opt_bytes = ma_steps(
+                model, steps, dtype, rows, model_axis=True)
+            for h in hooks:
+                h.remove()
+            if cap:
+                got["stem_band"] = check_stem_band(cap)
+                cap.clear()
+            if dtype == torch.bfloat16:
+                got.update(losses=losses, ms=ms, stem_launches=launches, held=held,
+                           peak=peak, opt_bytes=opt_bytes, sharded=len(sharded),
+                           layer4_rows=heights[0],
+                           param_bytes=sum(p.numel() * p.element_size()
+                                           for p in model.parameters()),
+                           rows=None if rows is None else list(rows.mine))
+            else:
+                sd, _ = tensor_parallel.gather_state(model, None, model.state_dict(),
+                                                     {"state": {}})
+                got.update(fp32_loss=losses[0], fp32_stem_launches=launches,
+                           rank0_spread=dp_spread(sd))
+                if mesh.rank() == 0:
+                    torch.save({k: v.cpu() for k, v in sd.items()},
+                               os.path.join(workdir, f"ma-{mode}-state.pt"))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        res[mode] = got
+    with open(os.path.join(workdir, f"ma-rank{mesh.rank()}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ma_pretrained_root(workdir):
+    return os.path.join(workdir, "ma-pretrained")
+
+
+def ma_trainer_config(workdir, mode):
+    """The main path's config with segtpu's model-axis keys: 2 devices, both
+    ``cuda:0`` (``device_ids``), ``model_parallel`` 2, ``spatial`` under
+    ``mode`` "spatial"; MA_TRAINER_STEPS steps, then validation. Under
+    "tp" the encoder starts from the seeded resnet50s.pth in
+    ``ma_pretrained_root``."""
+    args = {"backbone": "resnet50", "pallas_stem_wgrad": True, "pretrained": mode == "tp"}
+    config = smoke_config({"type": "PSPNet", "args": args},
+                          os.path.join(workdir, f"ma-{mode}", "saved"),
+                          steps=MA_TRAINER_STEPS)
+    config["pretrained_dir"] = ma_pretrained_root(workdir)
+    config["trainer"].update(device_ids="0,0", model_parallel=2, spatial=mode == "spatial")
+    return config
+
+
+def ma_trainer_rank(device, workdir):
+    """One rank of the model axis through the Trainer: for each mode,
+    ``segtpu_torch.train.main`` with the config keys as one rank of the
+    launcher's gloo group (a caller's own group: NCCL refuses two ranks on
+    one card), its steps recorded; then its state gathered into the
+    one-device layout and held against rank 0's. Under tensor parallelism
+    the model the Trainer shards holds the pretrained file's tensors bit
+    for bit (loaded, then broadcast from rank 0, before the sharding).
+    Writes ``ma-trainer-rank<r>.json``."""
+    import torch
+
+    from segtpu_torch import pretrained
+    from segtpu_torch import train as train_cli
+    from segtpu_torch import trainer as trainer_mod
+    from segtpu_torch.core import mesh, tensor_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(device)
+    recorder = StepRecorder()
+    grid = []
+    write_grid = trainer_mod.Trainer._write_val_grid
+
+    def record_grid(self, viz, epoch):
+        grid.extend([list(t.shape) for t in viz[0]] if viz else [])
+        return write_grid(self, viz, epoch)
+
+    trainer_mod.Trainer._write_val_grid = record_grid
+    shard, fed = tensor_parallel.shard_model, {}
+
+    def checked_shard(model, *args, **kwargs):
+        if model.pretrained:
+            sd = torch.load(os.path.join(ma_pretrained_root(workdir), "resnet50s.pth"),
+                            weights_only=True)
+            state = model.state_dict()
+            feeds = pretrained.remap(model, sd)
+            fed.update(tensors=len(feeds), equal=all(
+                torch.equal(state[t], v.to(state[t].device).reshape(state[t].shape))
+                for t, (_, v) in feeds.items()))
+        return shard(model, *args, **kwargs)
+
+    tensor_parallel.shard_model = checked_shard
+    res = {"rank": mesh.rank()}
+    for mode in ("tp", "spatial"):
+        grid.clear()
+        fed.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        recorder.start()
+        reset_launches()
+        trainer = train_cli.main(ma_trainer_config(workdir, mode), str(device))
+        torch.cuda.synchronize()
+        launches = read_launches()["stem_conv_wgrad"]
+        recorder.stop()
+        log = trainer.history[-1]
+        state = trainer.state
+        sd, _ = tensor_parallel.gather_state(state.model, None, state.model.state_dict(),
+                                             {"state": {}})
+        res[mode] = {
+            "steps": state.step, "remat": trainer.remat, "sharded": len(trainer.sharded),
+            "rows": None if trainer.train_rows is None else list(trainer.train_rows.mine),
+            "losses": [s["loss"] for s in recorder.steps],
+            "ms": [(s["t_out"] - s["t_in"]) * 1e3 for s in recorder.steps],
+            "step_launches": [s["stem_launches"] for s in recorder.steps],
+            "stem_launches": launches, "val_loss": log["val_loss"],
+            "Mean_IoU": log["Mean_IoU"], "Pixel_Accuracy": log["Pixel_Accuracy"],
+            "grid": list(grid), "rank0_spread": dp_spread(sd), "pretrained": dict(fed),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in state.model.parameters()),
+            "opt_bytes": sum(t.numel() * t.element_size()
+                             for st in state.optimizer.state.values()
+                             for t in st.values() if torch.is_tensor(t)),
+            "peak": torch.cuda.max_memory_allocated(device)}
+        del trainer, state, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"ma-trainer-rank{mesh.rank()}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ma_trainer_runs(workdir, card, launches, numbers):
+    """The model axis through the Trainer: the launcher's 2 gloo ranks on
+    the one card run ``ma_trainer_rank``; each mode takes its steps with one
+    stem launch a step on each rank, the ranks log the same losses and hold
+    the same state, validation reads its metrics, under spatial the val
+    grid shows whole 769-row images, and under tensor parallelism the
+    encoder starts from a seeded resnet50s.pth."""
+    from segtpu_torch.core import mesh
+    from segtpu_torch.models import get_model
+
+    root = ma_pretrained_root(workdir)
+    os.makedirs(root, exist_ok=True)
+    ref = get_model("PSPNet", device="cuda", num_classes=CLASSES, backbone="resnet50",
+                    pallas_stem_wgrad=True)
+    write_seeded_pth(os.path.join(root, "resnet50s.pth"), ref, 2)
+    del ref
+    t0 = time.perf_counter()
+    mesh.launch(ma_trainer_rank, (workdir,), ["cuda:0", "cuda:0"], backend="gloo",
+                timeout=600)
+    numbers["trainer_launch_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"ma-trainer-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    gib = 2.0 ** 30
+    for mode, label in (("tp", "tensor parallel"), ("spatial", "spatial + tensor parallel")):
+        for rk in ranks:
+            g = rk[mode]
+            timed = g["ms"][1:]
+            print(f"Trainer, {label}, rank {rk['rank']}: {g['steps']} steps through "
+                  f"segtpu_torch.train.main (trainer.model_parallel 2, spatial "
+                  f"{mode == 'spatial'}, device_ids 0,0), {g['sharded']} convs sharded, rows "
+                  f"{g['rows'] or 'all 769'}; losses {g['losses']}; ms/step {g['ms']} (timed "
+                  f"mean of {len(timed)} {sum(timed) / len(timed):.1f}; gloo on one card, no "
+                  f"target); val_loss {g['val_loss']:.6f}, Mean_IoU {g['Mean_IoU']}, "
+                  f"Pixel_Accuracy {g['Pixel_Accuracy']}; val grid image {g['grid']}; "
+                  f"parameters {g['param_bytes'] / gib:.3f} GiB, optimizer "
+                  f"{g['opt_bytes'] / gib:.3f} GiB, peak {g['peak'] / gib:.2f} GiB; stem "
+                  f"launches a step {g['step_launches']} [{card}]", flush=True)
+            check(g["steps"] == MA_TRAINER_STEPS and not g["remat"],
+                  f"Trainer {label}: {g['steps']} steps")
+            check(g["step_launches"] == [1] * MA_TRAINER_STEPS
+                  and g["stem_launches"] == MA_TRAINER_STEPS,
+                  f"Trainer {label} rank {rk['rank']}: stem launches {g['step_launches']}")
+            check(all(math.isfinite(x) for x in g["losses"] + [g["val_loss"]])
+                  and 0.0 <= g["Mean_IoU"] <= 1.0 and 0.0 <= g["Pixel_Accuracy"] <= 1.0,
+                  f"Trainer {label}: losses or metrics {g}")
+            check(g["losses"] == ranks[0][mode]["losses"] and
+                  g["val_loss"] == ranks[0][mode]["val_loss"],
+                  f"Trainer {label}: the ranks logged other losses")
+            check(g["rank0_spread"] == 0.0, f"Trainer {label}: rank {rk['rank']}'s state "
+                  f"differs from rank 0's by {g['rank0_spread']}")
+            check(g["sharded"] > 0, f"Trainer {label}: no conv sharded")
+            if mode == "tp":
+                p = g["pretrained"]
+                print(f"Trainer, {label}, rank {rk['rank']}: before the sharding the model "
+                      f"holds the {p.get('tensors')} tensors that resnet50s.pth feeds, bit "
+                      f"for bit: {p.get('equal')}", flush=True)
+                check(p.get("equal") and p.get("tensors", 0) > 0,
+                      f"Trainer {label}: the sharded model did not start from the file")
+            launches[f"Trainer, {label}, rank {rk['rank']}, {MA_TRAINER_STEPS} steps"] = (
+                g["stem_launches"])
+        want_rows = [[0, 392], [392, 769]] if mode == "spatial" else [None, None]
+        check([rk[mode]["rows"] for rk in ranks] == want_rows,
+              f"Trainer {label}: rows {[rk[mode]['rows'] for rk in ranks]}")
+    check(ranks[0]["spatial"]["grid"] == [[CROP, CROP, 3], [CROP, CROP], [CROP, CROP]],
+          f"Trainer spatial: the val grid's first image is {ranks[0]['spatial']['grid']}, "
+          f"not whole")
+    numbers["trainer"] = ranks
+
+
+def remat_through_main(workdir, card, recorder, main_steps, ref_peak, launches):
+    """``trainer.remat`` through ``segtpu_torch.train.main`` in one process:
+    the main path's config with the key set, its STEPS steps on the main
+    path's batches (their fingerprints equal), one stem launch a step, the
+    first MA_STEPS losses within DP_LOSS_TOL of the main path's (later ones
+    printed: two runs of the bf16 step part by 2.5e-3 one step after a
+    bit-identical state, the resume check's reading, and the parting grows
+    from random weights) and step times beside them; then 2 steps on one of
+    its batches for the peak above the memory held before them, beside one
+    process's. Returns the numbers."""
+    import torch
+
+    from segtpu_torch import train as train_cli
+    from segtpu_torch.data import DevicePrefetcher
+
+    config = smoke_config({"type": "PSPNet", "args": {"backbone": "resnet50",
+                                                      "pallas_stem_wgrad": True}},
+                          os.path.join(workdir, "ma-remat", "saved"), val=False)
+    config["trainer"]["remat"] = True
+    recorder.start()
+    reset_launches()
+    trainer = train_cli.main(config, "cuda")
+    torch.cuda.synchronize()
+    n = read_launches()["stem_conv_wgrad"]
+    recorder.stop()
+    steps = list(recorder.steps)
+    check(trainer.remat and trainer.state.step == STEPS,
+          f"trainer.remat: {trainer.state.step} steps, remat {trainer.remat}")
+    check([s["stem_launches"] for s in steps] == [1] * STEPS and n == STEPS,
+          f"trainer.remat: stem launches {[s['stem_launches'] for s in steps]}")
+    check([s["batch"] for s in steps] == [s["batch"] for s in main_steps],
+          "trainer.remat took other batches than the main path")
+    errs = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(steps, main_steps)]
+    err = max(errs[:MA_STEPS])
+    ms = [(s["t_out"] - s["t_in"]) * 1e3 for s in steps]
+    main_ms = [(s["t_out"] - s["t_in"]) * 1e3 for s in main_steps]
+    images, labels = next(iter(DevicePrefetcher(trainer.train_loader, torch.device("cuda"))))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        trainer.train_step(trainer.state, images, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    gib = 2.0 ** 30
+    print(f"trainer.remat through segtpu_torch.train.main: {STEPS} steps on the main "
+          f"path's batches, losses {[s['loss'] for s in steps]}, rel err a step "
+          f"{['%.3e' % e for e in errs]} against the main path's (the first {MA_STEPS} "
+          f"held, tol {DP_LOSS_TOL}); ms/step {ms} (timed mean of {STEPS - 1} "
+          f"{sum(ms[1:]) / (STEPS - 1):.1f}; the main path's recorded steps {main_ms}, "
+          f"mean {sum(main_ms[1:]) / (STEPS - 1):.1f}); 2 more steps' peak above the held "
+          f"{peak / gib:.2f} GiB (one process without remat {ref_peak / gib:.2f}); stem "
+          f"launches a step {[s['stem_launches'] for s in steps]} [{card}]", flush=True)
+    check(err < DP_LOSS_TOL, f"trainer.remat: losses off by {err}")
+    launches[f"PSPNet-R50 trainer.remat through train.main, {STEPS} steps"] = n
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "main_path_ms": main_ms, "peak": peak, "loss_rel_errs": errs}
+
+
+def model_axis_phase(workdir, card, recorder, main_steps):
+    """Phase 19; returns (stem launches by path, the numbers)."""
+    import torch
+
+    from segtpu_torch.core import mesh
+    from segtpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    batches = dp_batches(dev)[:MA_KNOB_STEPS]
+    model = dp_model(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    ref_losses, ref_ms, ref_launches, ref_held, ref_peak, ref_opt = ma_steps(
+        model, batches, torch.bfloat16)
+    ref_params = sum(p.numel() * p.element_size() for p in model.parameters())
+    model.load_state_dict(start)
+    ref_loss32 = ma_steps(model, batches[:1], torch.float32)[0]
+    ref = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(start)
+    half = BATCH // 2
+    ma_steps(model, [tuple(torch.cat([t[half:], t[:half]]) for t in batches[0])],
+             torch.float32)
+    control = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2.0 ** 30
+    print(f"one process, batch 8: losses {ref_losses}, ms/step {ref_ms}; parameters "
+          f"{ref_params / gib:.3f} GiB, optimizer {ref_opt / gib:.3f} GiB; held "
+          f"{ref_held / gib:.2f} GiB, the steps' peak above it {ref_peak / gib:.2f} GiB; "
+          f"stem launches {ref_launches} [{card}]", flush=True)
+    check(ref_launches == MA_KNOB_STEPS, f"one-process stem launches {ref_launches}")
+
+    t0 = time.perf_counter()
+    mesh.launch(ma_rank, (workdir,), ["cuda:0", "cuda:0"], backend="gloo", timeout=600)
+    launch_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"ma-rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    numbers = {"one_process": {"losses": ref_losses, "ms": ref_ms, "param_bytes": ref_params,
+                               "opt_bytes": ref_opt, "held": ref_held, "peak": ref_peak},
+               "ranks": ranks, "launch_s": launch_s}
+    moved = [k for k in ref if ref[k].is_floating_point() and not torch.equal(ref[k], start[k])]
+    stats = [k for k in moved if "running_" in k]
+    weights = [k for k in moved if "running_" not in k]
+    tol_w = max(DP_UPDATE_TOL, DP_NOISE_FACTOR * dp_update_error(control, ref, start, weights))
+    tol_s = max(DP_UPDATE_TOL, DP_NOISE_FACTOR * dp_update_error(control, ref, start, stats))
+    launches = {}
+    for mode, label in (("tp", "tensor parallel"), ("spatial", "spatial + tensor parallel")):
+        for rk in ranks:
+            g = rk[mode]
+            timed = g["ms"][1:]
+            print(f"{label}, rank {rk['rank']} on {rk['device']} over gloo: {g['sharded']} "
+                  f"convs sharded; rows {g['rows'] or 'all 769'}, layer4 rows "
+                  f"{g['layer4_rows']}; losses {g['losses']}; ms/step {g['ms']} (timed mean "
+                  f"{sum(timed) / len(timed):.1f}; gloo on one card, no target); parameters "
+                  f"{g['param_bytes'] / gib:.3f} GiB, optimizer {g['opt_bytes'] / gib:.3f} "
+                  f"GiB; held {g['held'] / gib:.2f} GiB, the steps' peak above it "
+                  f"{g['peak'] / gib:.2f} GiB; stem launches {g['stem_launches']} [{card}]",
+                  flush=True)
+            check(g["stem_launches"] == MA_STEPS and g["fp32_stem_launches"] == 1,
+                  f"{label} rank {rk['rank']} launched the stem kernel "
+                  f"{g['stem_launches']} and {g['fp32_stem_launches']} times")
+            check(g["rank0_spread"] == 0.0, f"{label}: rank {rk['rank']}'s state differs "
+                  f"from rank 0's by {g['rank0_spread']}")
+            check(g["losses"] == ranks[0][mode]["losses"], f"{label}: the ranks' losses differ")
+            check(g["sharded"] > 0, f"{label}: no conv sharded")
+            launches[f"{label}, rank {rk['rank']}, {MA_STEPS} steps"] = g["stem_launches"]
+            if mode == "spatial":
+                b = g["stem_band"]
+                print(f"spatial, rank {rk['rank']}: the stem kernel on the band the step gave "
+                      f"it, x {b['x']} (rows {b['rows']} and the halo), dy {b['dy']}, pad_h "
+                      f"{b['pad_h']}: against its plain version rel err {b['rel_err']:.3e}, "
+                      f"max abs err {b['max_abs_err']:.3e}; the 2 ranks' summed dW against "
+                      f"the plain dW of the whole image (x {b['whole_x']}, dy "
+                      f"{b['whole_dy']}) rel err {b['sum_rel_err']:.3e}, max abs err "
+                      f"{b['sum_max_abs_err']:.3e} (tol {WGRAD_REL_TOL}) [{card}]", flush=True)
+                check(b["rel_err"] < WGRAD_REL_TOL, f"rank {rk['rank']}: the stem kernel "
+                      f"on its band disagrees with its plain version: {b['rel_err']}")
+                check(b["sum_rel_err"] < WGRAD_REL_TOL, f"the bands' summed stem dW "
+                      f"disagrees with the whole image's: {b['sum_rel_err']}")
+        g = ranks[0][mode]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], ref_losses))
+        loss32_err = abs(g["fp32_loss"] - ref_loss32[0]) / abs(ref_loss32[0])
+        got = {k: v.to(dev) for k, v in torch.load(
+            os.path.join(workdir, f"ma-{mode}-state.pt"), weights_only=True).items()}
+        err_w = dp_update_error(got, ref, start, weights)
+        err_s = dp_update_error(got, ref, start, stats)
+        print(f"{label} against one process: bf16 losses rel err {loss_err:.3e} (tol "
+              f"{DP_LOSS_TOL}); the fp32 step: loss rel err {loss32_err:.3e}, the change of "
+              f"{len(weights)} parameters rel err {err_w:.3e} (tol {tol_w:.3e}), of "
+              f"{len(stats)} running statistics {err_s:.3e} (tol {tol_s:.3e}) [{card}]",
+              flush=True)
+        check(loss_err < DP_LOSS_TOL and loss32_err < DP_LOSS_TOL,
+              f"{label}: losses off by {loss_err} (bf16), {loss32_err} (fp32)")
+        check(err_w < tol_w and err_s < tol_s,
+              f"{label}: updates off: parameters {err_w}, running statistics {err_s}")
+        numbers[mode] = {"loss_rel_err": loss_err, "fp32_loss_rel_err": loss32_err,
+                         "update_rel_err": err_w, "stats_rel_err": err_s}
+        del got
+    check(sorted(rk["spatial"]["stem_band"]["pad_h"] for rk in ranks) == [[0, 1], [1, 0]],
+          "spatial: the stem bands' pad_h are not (1, 0) and (0, 1)")
+    numbers["stem_band"] = [rk["spatial"]["stem_band"] for rk in ranks]
+    tp, sp = ranks[0]["tp"], ranks[0]["spatial"]
+    check(tp["param_bytes"] < ref_params and tp["opt_bytes"] < ref_opt,
+          f"tensor parallel: a rank holds {tp['param_bytes']} parameter and "
+          f"{tp['opt_bytes']} optimizer bytes, one process {ref_params} and {ref_opt}")
+    check(all(rk["spatial"]["peak"] < ref_peak for rk in ranks),
+          f"spatial: the ranks' activation peaks {[rk['spatial']['peak'] for rk in ranks]} "
+          f"against one process's {ref_peak}")
+    check([rk["spatial"]["rows"] for rk in ranks] == [[0, 392], [392, 769]]
+          and [rk["spatial"]["layer4_rows"] for rk in ranks] == [49, 48],
+          "spatial: the bands are not 392 / 377 rows (49 / 48 at layer4)")
+    del ref, control, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("model axis: tensor parallel and spatial through the Trainer, two ranks on one "
+          "card over gloo")
+    ma_trainer_runs(workdir, card, launches, numbers)
+
+    phase("model axis: trainer.remat, remat_backbone and s2d_stem in one process")
+    numbers["knobs"] = {"main path": {"ms": ref_ms, "peak": ref_peak},
+                        "trainer.remat": remat_through_main(workdir, card, recorder,
+                                                            main_steps, ref_peak, launches)}
+    knobs = {"remat_backbone": {"remat_backbone": True},
+             "s2d_stem (no stem kernel)": {"s2d_stem": True, "pallas_stem_wgrad": False}}
+    for label, kw in knobs.items():
+        args = {"pallas_stem_wgrad": True, **kw}
+        model = get_model("PSPNet", device=dev, seed=DP_SEED, num_classes=CLASSES,
+                          backbone="resnet50", **args)
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+                m.p = 0.0
+        losses, ms, stem, held, peak, _ = ma_steps(model, batches, torch.bfloat16)
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        timed = ms[1:]
+        print(f"{label}: losses rel err {err:.3e} against the main path's (tol "
+              f"{DP_LOSS_TOL}); ms/step {ms} (timed mean {sum(timed) / len(timed):.1f}, main "
+              f"path {sum(ref_ms[1:]) / len(ref_ms[1:]):.1f}); the steps' peak above the "
+              f"held {peak / gib:.2f} GiB (main path {ref_peak / gib:.2f}); stem launches "
+              f"{stem} [{card}]", flush=True)
+        check(err < DP_LOSS_TOL, f"{label}: losses off by {err}")
+        check(stem == (0 if "s2d" in label else MA_KNOB_STEPS),
+              f"{label}: stem launches {stem}")
+        launches[f"PSPNet-R50 {label}, {MA_KNOB_STEPS} steps"] = stem
+        numbers["knobs"][label] = {"ms": ms, "peak": peak, "loss_rel_err": err}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"model axis phase: {numbers['phase_s']:.1f} s [{card}]")
+    return launches, numbers
 
 
 def pretrained_load_phase(root, card):
@@ -2846,6 +3434,7 @@ def run(args, workdir, t_start):
     recorder.snap_before = 2  # the state checkpoint-latest holds
 
     def checkpoints(trainer):
+        resume["main_steps"] = list(recorder.steps)
         phase("checkpoint and resume")
         resume["launches"], resume["numbers"] = checkpoint_and_resume(
             trainer, psp_config, recorder, workdir, card)
@@ -2999,6 +3588,11 @@ def run(args, workdir, t_start):
     dp_launches, dp_numbers = data_parallel_phase(workdir, card)
     print("data parallel: " + json.dumps(dp_numbers))
 
+    phase("model axis: tensor parallel and spatial, two ranks on one card over gloo")
+    ma_launches, ma_numbers = model_axis_phase(workdir, card, recorder,
+                                               resume["main_steps"])
+    print("model axis: " + json.dumps(ma_numbers))
+
     phase("kernels")
     flat_note = ("no model calls flat_conv (segtpu's do not either): launches "
                  "are those of the flat_conv phase, 0 on every main path")
@@ -3020,7 +3614,10 @@ def run(args, workdir, t_start):
         "timings": stem_times,
         "main_path_launches": {k: v["stem_conv_wgrad"] for k, v in paths.items()},
         "data_parallel_launches": {f"PSPNet-R50 2 ranks, {DP_WARMUP + DP_TIMED} steps, "
-                                   f"{k}": v for k, v in dp_launches.items()}}]
+                                   f"{k}": v for k, v in dp_launches.items()},
+        "model_axis_launches": ma_launches,
+        "model_axis_band_max_abs_err": [b["max_abs_err"] for b in ma_numbers["stem_band"]],
+        "model_axis_band_sum_max_abs_err": ma_numbers["stem_band"][0]["sum_max_abs_err"]}]
     for name, line, idx in (("flat_conv_wgrad", "segtpu/ops/flatconv.py:168", 0),
                             ("flat_conv_dgrad", "segtpu/ops/flatconv.py:205", 1)):
         first = flat_times[name][0]

@@ -26,14 +26,12 @@ Module names follow torchvision (``denselayerN.{norm1,conv1,norm2,conv2}``,
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from segtpu_torch.nn.layers import batch_norm, conv2d, kaiming_normal_init
+from segtpu_torch.nn.layers import batch_norm, conv2d, kaiming_normal_init, remat
 
 #: arch -> (growth, layers per block, stem width)
 DENSENET_CONFIG = {
@@ -42,25 +40,6 @@ DENSENET_CONFIG = {
     "densenet201": (32, (6, 12, 48, 32), 64),
     "densenet161": (48, (6, 12, 36, 24), 96),
 }
-
-
-@contextlib.contextmanager
-def _replay(norms):
-    """The checkpoint's recompute: the BNs normalize with the batch's
-    statistics as in the forward, but update copies of their running
-    statistics and ``num_batches_tracked``, which are dropped after; the
-    forward's update stays the only one."""
-    buffers = ("running_mean", "running_var", "num_batches_tracked")
-    kept = [[getattr(bn, b) for b in buffers] for bn in norms]
-    for bn, values in zip(norms, kept):
-        for b, v in zip(buffers, values):
-            setattr(bn, b, v.clone())
-    try:
-        yield
-    finally:
-        for bn, values in zip(norms, kept):
-            for b, v in zip(buffers, values):
-                setattr(bn, b, v)
 
 
 class DenseLayer(nn.Module):
@@ -92,11 +71,9 @@ class DenseBlock(nn.Module):
         self.out_channels = in_ch + num_layers * growth
 
     def _run(self, layer, parts):
-        if not (self.remat_layers and torch.is_grad_enabled()):
+        if not self.remat_layers:
             return layer(*parts)
-        norms = (layer.norm1, layer.norm2)
-        return checkpoint(layer, *parts, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(), _replay(norms)))
+        return remat(layer, layer, *parts)
 
     def forward(self, x):
         parts = [x]

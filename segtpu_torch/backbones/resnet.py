@@ -7,8 +7,10 @@ plans. The dilation plan is computed up front by :func:`_layer_plan`.
 
 Module names follow the original torch repo (``initial``, ``layerX.{i}.
 conv1/bn1/.../downsample.{0,1}``), so its state dicts load as they are.
-``multi_grid``, ``remat_blocks`` and ``s2d_stem`` are not ported yet
-(ROADMAP).
+segtpu's memory and stem knobs: ``multi_grid`` (layer4's dilations 4, 8,
+16), ``remat_blocks`` (each residual block recomputed in the backward) and
+``s2d_stem`` (the first stem conv as a stride-1 conv over the 2x2
+space-to-depth view, ``ops/s2d.py``).
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from segtpu_torch.nn.layers import batch_norm, conv2d
+from segtpu_torch.nn.layers import batch_norm, conv2d, remat
 from segtpu_torch.ops.conv_wgrad import StemConv2d
 from segtpu_torch.ops.pooling import max_pool
+from segtpu_torch.ops.s2d import S2DStemConv2d
 
 RESNET_LAYERS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -47,7 +50,21 @@ def _downsample(in_ch, out_ch, stride):
     return nn.Sequential(_conv(in_ch, out_ch, 1, stride), batch_norm(out_ch))
 
 
-class BasicBlock(nn.Module):
+class _Block(nn.Module):
+    """A residual block; with ``remat`` set its forward runs under
+    :func:`~segtpu_torch.nn.layers.remat` (segtpu's ``nn.remat`` of the
+    block): the backward recomputes it, and the recompute leaves the
+    running statistics as the forward left them."""
+
+    remat = False
+
+    def forward(self, x):
+        if self.remat:
+            return remat(self.block, self, x)
+        return self.block(x)
+
+
+class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, in_planes, planes, stride=1, dilation1=1, dilation2=1,
@@ -59,14 +76,14 @@ class BasicBlock(nn.Module):
         self.bn2 = batch_norm(planes)
         self.downsample = downsample
 
-    def forward(self, x):
+    def block(self, x):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(y + residual)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_Block):
     expansion = 4
 
     def __init__(self, in_planes, planes, stride=1, dilation=1,
@@ -80,7 +97,7 @@ class Bottleneck(nn.Module):
         self.bn3 = batch_norm(planes * 4)
         self.downsample = downsample
 
-    def forward(self, x):
+    def block(self, x):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -135,9 +152,10 @@ def _layer_plan(
 
 
 def run_features(initial: nn.Module, layers: Sequence[nn.Module],
-                 x: torch.Tensor) -> List[torch.Tensor]:
-    """Stem, 3x3/2 max pool, then the four stages; the stage outputs."""
-    y = max_pool(initial(x), 3, 2, padding=1)
+                 x: torch.Tensor, pool=max_pool) -> List[torch.Tensor]:
+    """Stem, 3x3/2 max pool (``pool``), then the four stages; the stage
+    outputs."""
+    y = pool(initial(x), 3, 2, padding=1)
     feats = []
     for layer in layers:
         y = layer(y)
@@ -153,21 +171,26 @@ class ResNetFeatures(nn.Module):
     (7x7 stem, ``output_stride`` 8/16/32). ``hdc`` (``None``, ``'rf'`` or
     ``'bigger'``) selects a Hybrid Dilated Conv plan of :func:`_layer_plan`
     instead, and ``stem_stride`` is the first stem conv's stride (1 for
-    DeepLab_DUC_HDC at output stride 4). Multi-grid is not ported yet
-    (ROADMAP).
+    DeepLab_DUC_HDC at output stride 4). ``multi_grid`` gives the encoding
+    style's layer4 the dilations 4, 8, 16.
 
     ``pallas_stem_wgrad`` routes the first stem conv's weight gradient
     through the CUDA kernel of ``ops/conv_wgrad.py`` (the name is segtpu's
     flag). Only valid where the backbone reads the model input: the kernel's
     input gradient is zero. The kernel computes a stride-2 conv, so the flag
     with ``stem_stride != 2`` raises (segtpu falls back to the plain conv
-    there without a word).
+    there without a word). ``s2d_stem`` computes that conv through
+    ``ops/s2d.py`` instead; ``pallas_stem_wgrad`` wins over it, and at a
+    stem stride other than 2 it is ignored, as in segtpu. ``remat_blocks``
+    recomputes each residual block in the backward. None of the three
+    changes a parameter's name or shape.
     """
 
     def __init__(self, arch: str = "resnet50", style: str = "torchvision",
                  output_stride: int = 32, in_channels: int = 3,
                  pallas_stem_wgrad: bool = False, hdc: Optional[str] = None,
-                 stem_stride: int = 2):
+                 stem_stride: int = 2, multi_grid: bool = False,
+                 remat_blocks: bool = False, s2d_stem: bool = False):
         super().__init__()
         if pallas_stem_wgrad and stem_stride != 2:
             raise ValueError(f"pallas_stem_wgrad needs stem_stride 2, got "
@@ -175,11 +198,13 @@ class ResNetFeatures(nn.Module):
         block_kind, counts = RESNET_LAYERS[arch]
         deep_base = style == "encoding" and block_kind == "bottleneck"
         strides, dils = _layer_plan(arch, style, output_stride,
-                                    multi_grid=False, hdc=hdc)
+                                    multi_grid=multi_grid, hdc=hdc)
 
         k = 3 if deep_base else 7
         if pallas_stem_wgrad:
             first = StemConv2d(in_channels, 64, k, _he_fanout_init)
+        elif s2d_stem and stem_stride == 2:
+            first = S2DStemConv2d(in_channels, 64, k, _he_fanout_init)
         else:
             first = _conv(in_channels, 64, k, stem_stride, k // 2)
         if deep_base:
@@ -216,6 +241,7 @@ class ResNetFeatures(nn.Module):
                     d1 = dils[li][bi]
                     d2 = max(dils[li]) if style == "encoding" else d1
                     blocks.append(BasicBlock(in_planes, planes, stride, d1, d2, ds))
+                blocks[-1].remat = remat_blocks
                 in_planes = out_planes
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         self.out_channels = in_planes

@@ -20,7 +20,12 @@ point: each rank's generators' states are gathered, and rank 0 alone writes
 them (under ``rng["ranks"]``) beside the unwrapped model's keys. Every rank
 waits at a barrier and then reads a checkpoint in :func:`load_checkpoint`,
 taking its own generators' states where the checkpoint has them; so a
-checkpoint saved on N ranks resumes on M.
+checkpoint saved on N ranks resumes on M. Under tensor parallelism
+(``core/tensor_parallel.py``) the sharded weights and their optimizer
+state are gathered into the one-device layout on save and cut back to
+each rank's slices on load, so a checkpoint of a sharded run resumes on
+one rank, and one of a single rank on a sharded run, bit for bit; the
+inference and serving paths read it as any other.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
-from segtpu_torch.core import mesh
+from segtpu_torch.core import mesh, tensor_parallel
 
 _META = "meta.json"
 _STATE = "state.pt"
@@ -64,6 +69,10 @@ def save_checkpoint(directory: str, name: str, state, epoch: int,
     process group, a collective: rank 0 writes."""
     path = os.path.abspath(os.path.join(directory, name))
     rng = _rng_state(_device_of(state.model))
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    if tensor_parallel.sharded_dims(state.model):  # a collective of every rank
+        model_sd, opt_sd = tensor_parallel.gather_state(state.model, state.optimizer,
+                                                        model_sd, opt_sd)
     if mesh.initialized():
         ranks = mesh.gather_objects({k: v.cpu() for k, v in rng.items()})
         if not mesh.is_main():
@@ -72,8 +81,7 @@ def save_checkpoint(directory: str, name: str, state, epoch: int,
     tmp, old = f"{path}.tmp-{os.getpid()}", f"{path}.old-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+    torch.save({"model": model_sd, "optimizer": opt_sd,
                 "step": int(state.step), "rng": rng},
                os.path.join(tmp, _STATE))
     # +/-inf means "no validation has run yet": store None so a resume keeps
@@ -122,8 +130,12 @@ def load_checkpoint(path: str, state) -> Dict:
     mesh.barrier()
     device = _device_of(state.model)
     saved = _load_state(path, torch.device("cpu"))
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+    model_sd, opt_sd = saved["model"], saved["optimizer"]
+    if tensor_parallel.sharded_dims(state.model):
+        model_sd, opt_sd = tensor_parallel.scatter_state(state.model, state.optimizer,
+                                                         model_sd, opt_sd)
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(saved["step"])
     r, ranks = mesh.rank(), saved["rng"].get("ranks", [])
     _set_rng_state(ranks[r] if r < len(ranks) else saved["rng"], device)

@@ -1,0 +1,517 @@
+"""Spatial sharding: each image's H split over the model axis.
+
+Counterpart of segtpu's ``batch_sharding(spatial=True)`` and of what GSPMD
+does with it: there XLA splits H over the mesh's ``model`` axis and writes
+the halo exchanges; here each rank of a model group (``core/mesh.py``)
+holds a band of rows of the same images, and every op whose window
+crosses H is written out:
+
+* :func:`split` puts the band boundaries at multiples of the model's total
+  stride (``spatial_stride``: 8 for PSPNet, 16 for UNet), so every strided
+  window and every ceil-mode pool starts on a boundary; the smallest map's
+  rows are shared as evenly as they go, the first ranks taking the extra
+  row, and the last rank takes the remainder of the input. PSPNet at 769
+  over 2 ranks: 392/377 input rows, 196/189 after the stem, 98/95 after
+  the pool, 49/48 in the feature map.
+* Convs and pools with a window over H (:class:`HaloConv2d`,
+  :func:`max_pool`, :class:`HaloStemConv2d`) receive the rows they read
+  from the ranks that own them (:func:`fetch_rows`); zero (or, for a max
+  pool, -inf) padding applies only at the image's global top and bottom.
+  The backward returns each halo row's gradient to its owner.
+* :func:`resize_bilinear` works from the global source and target sizes,
+  each rank computing its own output rows from its source rows and a
+  halo (or from a replicated source); :func:`adaptive_avg_pool_multi`
+  sums each bin's partial sums over the model group, so its bins are
+  replicated on the model ranks.
+
+Every exchange is an all-reduce of a buffer that is zero outside what each
+rank contributes (gloo carries all-reduces of CUDA tensors; it is the
+collective the data axis already uses), so a gathered row is its owner's
+bits.
+
+While a sharded forward runs (:func:`sharded`), the layout of each map
+(:class:`Rows`) is kept under its local height and its width, which is
+not sharded: the input's from the step, every other from the op that made
+it. An op that meets a map with no layout raises.
+
+:func:`shard_windows` puts these forms into a model, in place: each conv
+takes its halo class (same parameters and keys), and each module that
+calls a pool or resize over H through an attribute (``_max_pool``,
+``_resize``, ``_pool_bins``: PSPNet, its PSP module, UNet's encoders and
+decoders) gets this module's function there. ``ops/`` keeps one path, and
+each form here runs the plain op outside a sharded forward.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from segtpu_torch.core import mesh
+from segtpu_torch.ops import pooling
+from segtpu_torch.ops import resize as plain_resize
+from segtpu_torch.ops.conv_wgrad import StemConv, StemConv2d
+from segtpu_torch.ops.s2d import S2DStemConv2d, s2d_stem_conv
+
+
+class Rows(NamedTuple):
+    """A map's H over the model group: each model rank's ``[lo, hi)`` and
+    the global size."""
+
+    bounds: Tuple[Tuple[int, int], ...]
+    size: int
+
+    @property
+    def mine(self) -> Tuple[int, int]:
+        return self.bounds[mesh.model_index()]
+
+    def count(self, t: int) -> int:
+        lo, hi = self.bounds[t]
+        return hi - lo
+
+
+#: the layout of a map that every model rank holds whole (the PSP bins)
+REPLICATED = "replicated"
+
+
+def split(h: int, stride: int, parts: int) -> Rows:
+    """The input layout of ``h`` rows over ``parts`` ranks for a model of
+    total stride ``stride``: the ``ceil(h / stride)`` rows of the smallest
+    map shared as evenly as they go (the first ranks take the extra row),
+    each boundary at that multiple of ``stride``. Raises ``ValueError``
+    where a rank would hold no row of the smallest map."""
+    n = -(-h // stride)
+    if n < parts:
+        raise ValueError(f"spatial: {h} rows leave {n} rows of the stride-{stride} "
+                         f"map for {parts} ranks: some rank would hold none; use a "
+                         f"crop of at least {stride * (parts - 1) + 1} rows")
+    shares = [n // parts + (1 if t < n % parts else 0) for t in range(parts)]
+    edges = [stride * sum(shares[:t]) for t in range(parts)] + [h]
+    return Rows(tuple((edges[t], edges[t + 1]) for t in range(parts)), h)
+
+
+# -- the active layouts -----------------------------------------------------------
+
+_layouts: Optional[Dict[Tuple[int, int], object]] = None
+
+
+def active() -> bool:
+    """Whether a sharded forward (or its backward's recompute) runs."""
+    return _layouts is not None
+
+
+@contextlib.contextmanager
+def sharded(x: torch.Tensor, rows: Rows):
+    """Layouts are tracked inside: the model input ``x`` (this rank's rows)
+    has ``rows``. Wrap the forward and the backward, which may recompute."""
+    global _layouts
+    if x.shape[-2] != rows.count(mesh.model_index()):
+        raise ValueError(f"spatial: the input holds {x.shape[-2]} rows, its layout "
+                         f"gives this rank {rows.count(mesh.model_index())}")
+    prev, _layouts = _layouts, {}
+    register(x, rows)
+    try:
+        yield
+    finally:
+        _layouts = prev
+
+
+def register(y: torch.Tensor, rows) -> None:
+    """Record the layout of the map ``y`` (a :class:`Rows` or
+    :data:`REPLICATED`); a different layout under the same key raises."""
+    key = (int(y.shape[-2]), int(y.shape[-1]))
+    have = _layouts.setdefault(key, rows)
+    if have != rows:
+        raise RuntimeError(f"spatial: two layouts for a {key} map: {have} and {rows}")
+
+
+def rows_of(x: torch.Tensor):
+    """The layout of the map ``x``."""
+    key = (int(x.shape[-2]), int(x.shape[-1]))
+    if key not in _layouts:
+        raise RuntimeError(f"spatial: no layout for a map of {key} rows x columns: an "
+                           f"op that changes H is not spatial-aware")
+    return _layouts[key]
+
+
+def rows_of_size(h: int, w: int):
+    """The layout registered for maps of ``h`` local rows and ``w`` columns."""
+    if (h, w) not in _layouts:
+        raise RuntimeError(f"spatial: no layout for a map of {(h, w)} rows x columns")
+    return _layouts[(h, w)]
+
+
+# -- halo exchange ----------------------------------------------------------------
+
+def _segments(rows: Rows, need: Sequence[Tuple[int, int]]):
+    """For each rank t, the rows of ``need[t]`` (clipped to the map) that t
+    does not own: (t, first global row, count), top then bottom; and the
+    buffer offset of each."""
+    segs, off = [], 0
+    for t, (a, b) in enumerate(need):
+        lo, hi = rows.bounds[t]
+        for s0, s1 in ((max(a, 0), min(lo, b)), (max(a, hi), min(b, rows.size))):
+            if s1 > s0:
+                segs.append((t, s0, s1 - s0, off))
+                off += s1 - s0
+    return segs, off
+
+
+def _overlap(g0: int, n: int, lo: int, hi: int):
+    s0, s1 = max(g0, lo), min(g0 + n, hi)
+    return (s0, s1) if s1 > s0 else None
+
+
+class _Fetch(torch.autograd.Function):
+    """Rows ``[a, b)`` of the global map (clipped to it) on each rank, from
+    the ranks that own them; backward: each row's gradient summed back on
+    its owner."""
+
+    @staticmethod
+    def forward(ctx, x, rows, need, group):
+        me = mesh.model_index()
+        lo, hi = rows.bounds[me]
+        segs, total = _segments(rows, need)
+        ctx.rows, ctx.need, ctx.group, ctx.segs, ctx.total = rows, need, group, segs, total
+        ctx.shape = x.shape
+        buf = None
+        if total:
+            buf = x.new_zeros(x.shape[:2] + (total,) + x.shape[3:])
+            for t, g0, n, off in segs:
+                ov = _overlap(g0, n, lo, hi)
+                if ov is not None:
+                    buf[:, :, off + ov[0] - g0:off + ov[1] - g0] = x[:, :, ov[0] - lo:ov[1] - lo]
+            dist.all_reduce(buf, group=group)
+        a, b = need[me]
+        parts = [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 < lo]
+        own0, own1 = max(a, lo), min(b, hi)
+        if own1 > own0:
+            parts.append(x[:, :, own0 - lo:own1 - lo])
+        parts += [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 >= hi]
+        return torch.cat(parts, dim=2) if len(parts) > 1 else parts[0].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        me = mesh.model_index()
+        rows, need, segs = ctx.rows, ctx.need, ctx.segs
+        lo, hi = rows.bounds[me]
+        a, b = need[me]
+        dx = g.new_zeros(ctx.shape)
+        at = 0
+        buf = g.new_zeros(g.shape[:2] + (ctx.total,) + g.shape[3:]) if ctx.total else None
+        for t, g0, n, off in segs:
+            if t == me and g0 < lo:
+                buf[:, :, off:off + n] = g[:, :, at:at + n]
+                at += n
+        own0, own1 = max(a, lo), min(b, hi)
+        if own1 > own0:
+            dx[:, :, own0 - lo:own1 - lo] = g[:, :, at:at + own1 - own0]
+            at += own1 - own0
+        for t, g0, n, off in segs:
+            if t == me and g0 >= hi:
+                buf[:, :, off:off + n] = g[:, :, at:at + n]
+                at += n
+        if ctx.total:
+            dist.all_reduce(buf, group=ctx.group)
+            for t, g0, n, off in segs:
+                ov = _overlap(g0, n, lo, hi)
+                if ov is not None:
+                    dx[:, :, ov[0] - lo:ov[1] - lo] += buf[:, :, off + ov[0] - g0:off + ov[1] - g0]
+        return dx, None, None, None
+
+
+def fetch_rows(x: torch.Tensor, rows: Rows, need: Sequence[Tuple[int, int]]):
+    """Global rows ``need[me]`` of the map ``x`` (this rank's rows of
+    ``rows``) on this rank, every rank asking for its own ``need[t]`` in
+    the same call: ``(ext, top, bottom)``, ``ext`` the rows that lie in the
+    map and ``top``/``bottom`` how many asked-for rows lie above and below
+    it (the caller's padding)."""
+    a, b = need[mesh.model_index()]
+    ext = _Fetch.apply(x, rows, tuple(need), mesh.model_group())
+    return ext, max(0, -a), max(0, b - rows.size)
+
+
+def _window_rows(rows: Rows, k_eff: int, s: int, p: int, out_size: int):
+    """Each rank's output rows ``[lo/s, hi/s)`` (the last rank's up to
+    ``out_size``) and the input rows they read."""
+    bounds, need = [], []
+    m = len(rows.bounds)
+    for t, (lo, hi) in enumerate(rows.bounds):
+        if t and lo % s:
+            raise ValueError(f"spatial: a stride-{s} window at a band boundary {lo} "
+                             f"that is not a multiple of {s}")
+        o0 = lo // s
+        o1 = out_size if t == m - 1 else hi // s
+        if o1 <= o0:
+            raise ValueError(f"spatial: rank {t} holds no output row of a {out_size}-row "
+                             f"map; use a larger crop")
+        bounds.append((o0, o1))
+        need.append((o0 * s - p, (o1 - 1) * s - p + k_eff))
+    return Rows(tuple(bounds), out_size), need
+
+
+def window_input(x: torch.Tensor, k: int, s: int, p: int, d: int = 1,
+                 ceil_mode: bool = False):
+    """For a window of ``k`` taps (dilation ``d``), stride ``s`` and padding
+    ``p`` over H: ``(ext, top, bottom, out_rows)``, the rows this rank's
+    output rows read (:func:`fetch_rows`) and the output's layout."""
+    rows = rows_of(x)
+    k_eff = d * (k - 1) + 1
+    span = rows.size + 2 * p - k_eff
+    out = (-(-span // s) if ceil_mode else span // s) + 1
+    if ceil_mode and (out - 1) * s >= rows.size + p:
+        out -= 1
+    out_rows, need = _window_rows(rows, k_eff, s, p, out)
+    ext, top, bottom = fetch_rows(x, rows, need)
+    return ext, top, bottom, out_rows
+
+
+def _pad_rows(x: torch.Tensor, top: int, bottom: int, value: float = 0.0) -> torch.Tensor:
+    if not (top or bottom):
+        return x
+    return F.pad(x, (0, 0, top, bottom), value=value)
+
+
+def conv2d(x, weight, bias, stride, padding, dilation, groups):
+    """``F.conv2d`` over this rank's rows of a sharded map, registering the
+    output's layout."""
+    ext, top, bottom, out_rows = window_input(x, weight.shape[2], stride[0], padding[0],
+                                              dilation[0])
+    y = F.conv2d(_pad_rows(ext, top, bottom), weight, bias, stride, (0, padding[1]),
+                 dilation, groups)
+    register(y, out_rows)
+    return y
+
+
+def conv_transpose2d(x, weight, bias, stride, padding, output_padding, groups, dilation):
+    """``F.conv_transpose2d`` over a sharded map, for windows that do not
+    overlap in H (kernel = stride, no padding: UNet's up-convs): output rows
+    ``[s*lo, s*hi)``."""
+    k, s = weight.shape[2], stride[0]
+    if k != s or padding[0] or dilation[0] != 1:
+        raise NotImplementedError(f"spatial: transposed conv k {k}, stride {s}, padding "
+                                  f"{padding[0]}: only k = stride without padding is "
+                                  f"sharded over H (ROADMAP)")
+    rows = rows_of(x)
+    last = len(rows.bounds) - 1
+    out_rows = Rows(tuple((s * lo, s * hi + (output_padding[0] if t == last else 0))
+                          for t, (lo, hi) in enumerate(rows.bounds)),
+                    s * rows.size + output_padding[0])
+    op = (output_padding[0] if mesh.model_index() == last else 0, output_padding[1])
+    y = F.conv_transpose2d(x, weight, bias, stride, padding, op, groups, dilation)
+    register(y, out_rows)
+    return y
+
+
+class HaloConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (its class swapped in place: same parameters and keys)
+    whose window over H crosses band boundaries: its input rows come from
+    their owners, and its H padding is the image's."""
+
+    def _conv_forward(self, x, weight, bias):
+        if not active():
+            return super()._conv_forward(x, weight, bias)
+        return conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
+                      self.groups)
+
+
+class HaloConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` over a sharded map (:func:`conv_transpose2d`)."""
+
+    def forward(self, x, output_size=None):
+        if not active():
+            return super().forward(x, output_size)
+        return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
+                                self.output_padding, self.groups, self.dilation)
+
+
+class HaloStemConv2d(StemConv2d):
+    """The stem kernel's conv over a band: x carries the halo rows, and the
+    kernel pads H only at the image's top and bottom (``pad_h``)."""
+
+    def forward(self, x):
+        if not active():
+            return super().forward(x)
+        k = self.kernel_size
+        ext, top, bottom, out_rows = window_input(x, k, 2, k // 2)
+        y = StemConv.apply(ext, self.weight, k, (top, bottom))
+        register(y, out_rows)
+        return y
+
+
+class HaloS2DStemConv2d(S2DStemConv2d):
+    """The space-to-depth stem conv over a band, as :class:`HaloStemConv2d`."""
+
+    def forward(self, x):
+        if not active():
+            return super().forward(x)
+        k = self.kernel_size
+        ext, top, bottom, out_rows = window_input(x, k, 2, k // 2)
+        y = s2d_stem_conv(ext, self.weight, k // 2, (top, bottom))
+        register(y, out_rows)
+        return y
+
+
+def max_pool(x: torch.Tensor, window, stride=None, padding=0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """torch-style max pool over a sharded map (-inf beyond the image)."""
+    if not active():
+        return pooling.max_pool(x, window, stride, padding, ceil_mode)
+    kh, kw = (window, window) if isinstance(window, int) else window
+    stride = stride or (kh, kw)
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    ext, top, bottom, out_rows = window_input(x, kh, sh, ph, 1, ceil_mode)
+    y = F.max_pool2d(_pad_rows(ext, top, bottom, -torch.inf), (kh, kw), (sh, sw),
+                     (0, pw), ceil_mode=ceil_mode)
+    register(y, out_rows)
+    return y
+
+
+# -- ops in global coordinates ----------------------------------------------------
+
+def _source_rows(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
+    """torch's bilinear source coordinate of each output row (float64)."""
+    i = np.arange(n_out, dtype=np.float64)
+    if align_corners:
+        scale = (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0
+        return scale * i
+    return np.maximum(n_in / n_out * (i + 0.5) - 0.5, 0.0)
+
+
+def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize from a sharded (or replicated) map to the sharded map
+    of local size ``size``, in global coordinates: each rank's output rows
+    from the source rows they read, fetched from their owners; the identity
+    only where the source's layout is the target's."""
+    if not active():
+        return plain_resize.resize_bilinear(x, size, align_corners)
+    src, dst = rows_of(x), rows_of_size(int(size[0]), int(size[1]))
+    n_out = dst.size
+    n_in = x.shape[-2] if src == REPLICATED else src.size
+    w_out = int(size[1])
+    if src == dst and x.shape[-1] == w_out:
+        return x
+    pos = _source_rows(n_in, n_out, align_corners)
+    y0 = np.floor(pos).astype(np.int64)
+    y1 = np.minimum(y0 + 1, n_in - 1)
+    need = [(int(y0[lo:hi].min()), int(y1[lo:hi].max()) + 1) for lo, hi in dst.bounds]
+    if src == REPLICATED:
+        ext, base = x, 0
+    else:
+        ext, _, _ = fetch_rows(x, src, need)
+        base = need[mesh.model_index()][0]
+    lo, hi = dst.mine
+    lam = torch.tensor(pos[lo:hi] - y0[lo:hi], dtype=torch.float64)
+    lam = lam.to(x.device, x.dtype if x.is_floating_point() else torch.float32)
+    lam = lam.view(1, 1, -1, 1)
+    i0 = torch.as_tensor(y0[lo:hi] - base, device=x.device)
+    i1 = torch.as_tensor(y1[lo:hi] - base, device=x.device)
+    rows = ext.index_select(2, i0) * (1 - lam) + ext.index_select(2, i1) * lam
+    if x.shape[-1] == w_out:
+        return rows
+    # H is already the output's: torch's bilinear over W alone (its H
+    # weights are 1 and 0)
+    return F.interpolate(rows, size=(hi - lo, w_out), mode="bilinear",
+                         align_corners=align_corners)
+
+
+def adaptive_avg_pool_multi(x: torch.Tensor, sizes: Sequence) -> List[torch.Tensor]:
+    """``adaptive_avg_pool2d(x, s)`` of the whole map for every bin size,
+    replicated on the model ranks: each bin's partial sum over this rank's
+    rows (global bin bounds), summed over the model group both ways (each
+    rank's gradient of a bin is the part its rows carried)."""
+    if not active():
+        return pooling.adaptive_avg_pool_multi(x, sizes)
+    rows = rows_of(x)
+    lo, hi = rows.mine
+    h, w = rows.size, x.shape[-1]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xa = x.to(acc)
+    out = []
+    for s in sizes:
+        s = int(s)
+        bins = [(i * h // s, -(-(i + 1) * h // s)) for i in range(s)]
+        cols = [(j * w // s, -(-(j + 1) * w // s)) for j in range(s)]
+        mh = torch.zeros(s, hi - lo, dtype=torch.float64)
+        for i, (b0, b1) in enumerate(bins):
+            ov = _overlap(b0, b1 - b0, lo, hi)
+            if ov is not None:
+                mh[i, ov[0] - lo:ov[1] - lo] = 1.0
+        mw = torch.zeros(s, w, dtype=torch.float64)
+        for j, (c0, c1) in enumerate(cols):
+            mw[j, c0:c1] = 1.0
+        area = torch.tensor([[(b1 - b0) * (c1 - c0) for c0, c1 in cols] for b0, b1 in bins],
+                            dtype=torch.float64)
+        with torch.autocast(x.device.type, enabled=False):
+            part = torch.einsum("ih,nchw,jw->ncij", mh.to(x.device, acc), xa,
+                                mw.to(x.device, acc))
+            pooled = mesh.sum_both_ways(part, mesh.model_group()) / area.to(x.device, acc)
+        pooled = pooled.to(x.dtype)
+        register(pooled, REPLICATED)
+        out.append(pooled)
+    return out
+
+
+# -- whole images -----------------------------------------------------------------
+
+def keep_rows(a: np.ndarray, rows: Rows) -> np.ndarray:
+    """This rank's rows of a host batch (NHWC images or NHW labels)."""
+    lo, hi = rows.mine
+    return a[:, lo:hi]
+
+
+def gather_image(t: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """The whole H of ``t`` (HWC or HW: this rank's rows of ``rows``) on
+    every model rank: for the val grid only, which shows full images."""
+    lo, hi = rows.mine
+    buf = F.pad(t, [0, 0] * (t.dim() - 1) + [lo, rows.size - hi])
+    dist.all_reduce(buf, group=mesh.model_group())
+    return buf
+
+
+# -- the models -------------------------------------------------------------------
+
+def check_model(model: nn.Module) -> int:
+    """The model's total stride over H (``spatial_stride``); a model without
+    one raises ``ValueError``: only PSPNet and UNet are sharded over H."""
+    stride = getattr(model, "spatial_stride", None)
+    if stride is None:
+        raise ValueError(f"trainer.spatial: {type(model).__name__} is not sharded over "
+                         f"H yet; PSPNet and UNet are (ROADMAP)")
+    return stride
+
+
+#: the halo class of each conv class with a window over H
+HALO_CLASSES = {nn.ConvTranspose2d: HaloConvTranspose2d, StemConv2d: HaloStemConv2d,
+                S2DStemConv2d: HaloS2DStemConv2d}
+#: the sharded form of each op a module calls through the attribute
+HALO_OPS = {"_max_pool": max_pool, "_resize": resize_bilinear,
+            "_pool_bins": adaptive_avg_pool_multi}
+
+
+def shard_windows(model: nn.Module) -> int:
+    """Swap every conv of ``model`` with a window or a stride over H for its
+    halo counterpart, in place (class swap: parameters, keys and any
+    tensor-parallel slicing stay), and set the sharded pools and resizes
+    on the modules that call them through ``HALO_OPS``' attributes;
+    returns how many convs. A conv that already took a sharded class keeps
+    its own (``core/tensor_parallel.py`` gives it the halo)."""
+    n = 0
+    for m in model.modules():
+        for name, fn in HALO_OPS.items():
+            if hasattr(type(m), name):
+                setattr(m, name, fn)
+        if type(m) is nn.Conv2d and (m.kernel_size[0] > 1 or m.stride[0] > 1):
+            m.__class__ = HaloConv2d
+            n += 1
+        elif type(m) in HALO_CLASSES:
+            m.__class__ = HALO_CLASSES[type(m)]
+            n += 1
+    return n

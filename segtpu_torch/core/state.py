@@ -118,7 +118,9 @@ class TrainState:
     ``model`` is always the unwrapped module: checkpoints hold its keys (no
     ``module.`` prefix), so a run saved on N ranks resumes on M. Under a
     process group of more than one rank, :meth:`data_parallel` adds the
-    wrap that the train step runs through (:attr:`train_module`)."""
+    wrap that the train step runs through (:attr:`train_module`); with a
+    model axis, :meth:`model_axis` sums the gradients instead
+    (:meth:`sync_gradients`)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedules: List[Callable[[int], float]]):
@@ -127,6 +129,47 @@ class TrainState:
         self.schedules = schedules
         self.step = 0
         self.wrapped: Optional[nn.Module] = None
+        #: [(group, scale, parameters)] whose gradients :meth:`sync_gradients`
+        #: sums
+        self.grad_groups: Optional[list] = None
+
+    def model_axis(self) -> None:
+        """Sum the gradients over the model axis's groups after each
+        backward (``core/mesh.py``'s table): a parameter sharded by
+        ``core/tensor_parallel.py`` over the data group (its weight gather
+        summed the model group's parts already); a replicated one over the
+        world, divided by the model axis's size under tensor parallelism
+        alone, whose model ranks each hold the whole gradient (the mean of
+        equal terms is their value, and the division by a power of two is
+        exact; it keeps the replicas' bits equal where the card's
+        nondeterministic sums part them). Built after the optimizer, on the
+        sharded model; frozen parameters are left out."""
+        from segtpu_torch.core import mesh, tensor_parallel
+
+        sharded = tensor_parallel.sharded_dims(self.model)
+        scale = 1.0 if mesh.spatial() else 1.0 / mesh.model_size()
+        groups = {}
+        for name, p in self.model.named_parameters():
+            if p.requires_grad:
+                key = (mesh.data_group(), 1.0) if name in sharded else (None, scale)
+                groups.setdefault((id(key[0]), key[1]), (*key, []))[2].append(p)
+        self.grad_groups = [g for g in groups.values() if mesh.group_size(g[0]) > 1]
+
+    def sync_gradients(self) -> None:
+        """Each group's gradients summed over it (and scaled), in one
+        all-reduce a group (no-op without :meth:`model_axis`)."""
+        import torch.distributed as dist
+
+        for group, scale, params in self.grad_groups or ():
+            grads = [p.grad for p in params if p.grad is not None]
+            if not grads:
+                continue
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            if scale != 1.0:
+                flat.mul_(scale)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
 
     def data_parallel(self) -> None:
         """Wrap the model in ``DistributedDataParallel`` over the default

@@ -10,9 +10,19 @@ Under a process group the step runs through the state's data-parallel wrap
 (``TrainState.data_parallel``) and its loss is the global batch's
 (``losses.py``); the loss is scaled by the world size before ``backward``,
 so that the wrap's mean of the ranks' gradients is the gradient of the
-global loss, as segtpu's under its mesh.
+global loss, as segtpu's under its mesh. With a model axis
+(``TrainState.model_axis``) there is no wrap: the gradients are summed over
+the axis's groups after ``backward``. Under spatial sharding the images and
+labels are this rank's rows (``core/spatial.py``), and ``rows`` is their
+layout over the model group.
 The stats stay each rank's own until the trainer sums them at the epoch's
 end.
+
+``remat`` (segtpu's ``trainer.remat``) wraps the forward in
+``torch.utils.checkpoint`` (``use_reentrant=False``, dropout's generator
+state preserved): the backward recomputes the activations instead of
+keeping them. The recompute's BatchNorms update copies of their running
+statistics, so the forward's update stays the only one.
 
 Batches come in as the loader makes them: NHWC images (uint8 raw pixels
 with ``norm_stats``, else normalized float) and (B, H, W) labels, already on
@@ -22,13 +32,15 @@ channels_last tensor.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
-from segtpu_torch.core import mesh
+from segtpu_torch.core import mesh, spatial
 from segtpu_torch.core.state import TrainState
 from segtpu_torch.metrics import seg_stats_from_logits
+from segtpu_torch.nn.layers import remat
 
 
 def prep_images(images: torch.Tensor, norm_stats,
@@ -49,9 +61,10 @@ def _autocast(device: torch.device, compute_dtype: torch.dtype):
                           enabled=compute_dtype == torch.bfloat16)
 
 
-def _forward_loss(model, x, labels, loss_fn, ignore_index, aux_weight, compute_dtype):
+def _forward_loss(model, x, labels, loss_fn, ignore_index, aux_weight, compute_dtype,
+                  use_remat=False):
     with _autocast(x.device, compute_dtype):
-        outputs = model(x)
+        outputs = remat(model, model, x) if use_remat else model(x)
     logits = outputs["out"]
     loss = loss_fn(logits, labels, ignore_index=ignore_index)
     if "aux" in outputs:
@@ -60,24 +73,36 @@ def _forward_loss(model, x, labels, loss_fn, ignore_index, aux_weight, compute_d
     return loss, logits
 
 
+def _rows_scope(x, rows):
+    """The layouts' scope under spatial sharding; nothing otherwise."""
+    if not mesh.spatial():
+        return contextlib.nullcontext()
+    if rows is None:
+        raise ValueError("spatial: the step takes the input's layout (rows=)")
+    return spatial.sharded(x, rows)
+
+
 def make_train_step(loss_fn: Callable, ignore_index: int = 255,
                     aux_weight: float = 0.4,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    norm_stats=None):
-    """Returns ``step(state, images, labels) -> (loss, SegStats)``; the
-    state's model and optimizer are updated in place."""
+                    norm_stats=None, remat: bool = False):
+    """Returns ``step(state, images, labels, rows=None) -> (loss,
+    SegStats)``; the state's model and optimizer are updated in place.
+    ``rows`` is the input's layout under spatial sharding."""
 
-    def step(state: TrainState, images, labels):
+    def step(state: TrainState, images, labels, rows=None):
         model = state.train_module
         model.train()
         x = prep_images(images, norm_stats, compute_dtype)
-        loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
-                                     aux_weight, compute_dtype)
-        state.optimizer.zero_grad(set_to_none=True)
-        if state.wrapped is None:
-            loss.backward()
-        else:  # the wrap's mean of the ranks' gradients becomes their sum
-            (loss * mesh.world_size()).backward()
+        with _rows_scope(x, rows):
+            loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
+                                         aux_weight, compute_dtype, remat)
+            state.optimizer.zero_grad(set_to_none=True)
+            if state.wrapped is None:
+                loss.backward()
+            else:  # the wrap's mean of the ranks' gradients becomes their sum
+                (loss * mesh.world_size()).backward()
+        state.sync_gradients()
         state.apply_gradients()
         with torch.no_grad():
             stats = seg_stats_from_logits(logits.detach(), labels)
@@ -89,15 +114,17 @@ def make_train_step(loss_fn: Callable, ignore_index: int = 255,
 def make_eval_step(loss_fn: Callable, ignore_index: int = 255,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    norm_stats=None):
-    """Returns ``step(model, images, labels) -> (loss, SegStats, logits)``
-    in eval mode, without gradients; the logits stay on the device."""
+    """Returns ``step(model, images, labels, rows=None) -> (loss, SegStats,
+    logits)`` in eval mode, without gradients; the logits stay on the
+    device (this rank's rows under spatial sharding)."""
 
     @torch.no_grad()
-    def step(model, images, labels):
+    def step(model, images, labels, rows=None):
         model.eval()
         x = prep_images(images, norm_stats, compute_dtype)
-        loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
-                                     0.0, compute_dtype)
+        with _rows_scope(x, rows):
+            loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
+                                         0.0, compute_dtype)
         return loss, seg_stats_from_logits(logits, labels), logits
 
     return step

@@ -2,13 +2,15 @@
 //
 // Replaces segtpu/ops/conv_wgrad.py::stem_conv_wgrad (the Pallas TPU
 // kernel). It computes dW (k, k, C, CO), fp32, of a k x k, stride-2,
-// pad p = k//2, bias-free NHWC convolution:
+// pad p = k//2 (pt rows above, any below), bias-free NHWC convolution:
 //
-//   dW[kh, kw, c, o] = sum_{n, ho, wo} x[n, 2ho - p + kh, 2wo - p + kw, c]
+//   dW[kh, kw, c, o] = sum_{n, ho, wo} x[n, 2ho - pt + kh, 2wo - p + kw, c]
 //                                       * dy[n, ho, wo, o]
 //
 // from x (N, H, W, C) and dy (N, Ho, Wo, CO), both bf16, with every
-// product summed in fp32.
+// product summed in fp32; x rows outside [0, H) read as zero. pt is p for
+// the whole image; a band of an image sharded over H carries its halo rows
+// in x and takes pt = 0 (or p at the image's top).
 //
 // What bounds it: memory. At the main path's shape (x 8x769x769x3, dy
 // 8x385x385x64, k=3) it must read x (28.4 MB) and dy (151.8 MB) once,
@@ -86,6 +88,7 @@ constexpr int kReduceWarps = 8;   // warps that split the partials' G axis
 
 struct StemArgs {
   int n, h, w, c, ho, wo, co, k;
+  int pad_top;          // zero rows above x (k / 2 for a whole image)
   int kr, kc, cs;       // a tap group's box: kh rows, kw columns, channels
   int gw, gc;           // tap groups along kw and along c
   int span;             // x rows staged as whole-C spans by cp.async
@@ -239,7 +242,7 @@ __device__ __forceinline__ void stage_tile(const StemArgs& g, const Box& bx, con
   const int col0 = 2 * tl.wo0 - pad + bx.kw0;  // the box's first column
   const int cols = span_cols(g.kc);
   for (int r = 0; r < g.kr; ++r) {
-    const int hi = 2 * tl.oh - pad + bx.kh0 + r;
+    const int hi = 2 * tl.oh - g.pad_top + bx.kh0 + r;
     const bool row_ok = r < bx.nkh && hi >= 0 && hi < g.h;
     unsigned short* dst = xs + r * xrow;
     if (g.span) {
@@ -364,7 +367,8 @@ stem_wgrad_tc(const unsigned short* __restrict__ x, const unsigned short* __rest
     // per owned tap: where pixel 2(lane % 4) of the tile's first step lies,
     // and the pixels [plo, phi) whose column 2(wo0 + p) - pad + kw lies in
     // the image (none past the tile's width)
-    const long long e0 = x_elem(g, tl.b, 2 * tl.oh - pad + bx.kh0, 2 * tl.wo0 - pad + bx.kw0);
+    const long long e0 =
+        x_elem(g, tl.b, 2 * tl.oh - g.pad_top + bx.kh0, 2 * tl.wo0 - pad + bx.kw0);
     int xb[NT], plo[NT], phi[NT];
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
@@ -549,16 +553,17 @@ int stem_conv_wgrad_occupancy(int nt, int smem_bytes) {
 // Returns a CUDA error code: that of a refused shared-memory size, or
 // cudaGetLastError() after the launches (0 on success).
 int stem_conv_wgrad(const void* x, const void* dy, void* partial, void* out,
-                    int n, int h, int w, int c, int ho, int wo, int co, int k,
+                    int n, int h, int w, int c, int ho, int wo, int co, int k, int pad_top,
                     int nt, int kr, int kc, int cs, int span, int stages, int row_blocks,
                     void* stream) {
   if (nt < 1 || nt > kMaxNT || kr < 1 || kc < 1 || cs < 1 || kr * kc * cs > 32 * nt ||
-      stages < 2 || stages > kMaxStages || row_blocks < 1 ||
+      stages < 2 || stages > kMaxStages || row_blocks < 1 || pad_top < 0 || pad_top > k ||
       (span && (reinterpret_cast<uintptr_t>(x) & 15))) {
     return (int)cudaErrorInvalidValue;
   }
   StemArgs a;
   a.n = n; a.h = h; a.w = w; a.c = c; a.ho = ho; a.wo = wo; a.co = co; a.k = k;
+  a.pad_top = pad_top;
   a.kr = kr; a.kc = kc; a.cs = cs;
   a.gw = (k + kc - 1) / kc;
   a.gc = (c + cs - 1) / cs;

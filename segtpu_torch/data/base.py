@@ -411,14 +411,17 @@ class DevicePrefetcher:
     marks the tensors as used by it (``record_stream``), so the caching
     allocator does not hand their memory out while the step still reads it.
     At most ``depth`` batches wait in the queue. A loader's error is raised
-    to the consumer. On the CPU the tensors are the loader's arrays."""
+    to the consumer. On the CPU the tensors are the loader's arrays. With
+    ``rows`` (a ``core/spatial.py`` layout, under spatial sharding) each
+    batch keeps this rank's band of rows before it leaves the host."""
 
-    def __init__(self, loader, device, depth: int = 2):
+    def __init__(self, loader, device, depth: int = 2, rows=None):
         import torch
 
         self.loader = loader
         self.device = torch.device(device)
         self.depth = depth
+        self.rows = rows
 
     def __len__(self):
         return len(self.loader)
@@ -437,6 +440,10 @@ class DevicePrefetcher:
                 if cuda and self.device.index is not None:
                     torch.cuda.set_device(self.device)  # this thread's: the rank's
                 for batch in self.loader:
+                    if self.rows is not None:
+                        from segtpu_torch.core.spatial import keep_rows
+
+                        batch = [keep_rows(a, self.rows) for a in batch]
                     host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
                     event = None
                     if cuda:

@@ -20,6 +20,12 @@ and the gradient of its own logits; the train step scales the loss by the
 world size before ``backward``, so that the data-parallel wrap's mean of
 the ranks' gradients is the gradient of the global loss. Outside a group
 every helper is the identity.
+
+With a model axis (``core/mesh.py``) the sums run over the ranks whose
+pixels differ (:func:`~segtpu_torch.core.mesh.pixel_group`: the data group
+under tensor parallelism, whose model ranks hold the same rows; the world
+under spatial sharding), and a per-image loss first gathers each image's
+rows over its model group, then averages the images over the data group.
 """
 
 from __future__ import annotations
@@ -40,8 +46,29 @@ def _image_mean(per_image: torch.Tensor) -> torch.Tensor:
     if not mesh.initialized():
         return per_image.mean()
     total, count = mesh.global_sums(per_image.sum(), per_image.new_tensor(
-        float(per_image.numel())))
+        float(per_image.numel())), group=mesh.image_group())
     return total / count
+
+
+def _sums(*terms):
+    """``terms`` summed over the ranks whose pixels differ."""
+    return mesh.global_sums(*terms, group=mesh.pixel_group())
+
+
+def _all_pixels(t: torch.Tensor) -> torch.Tensor:
+    """(..., P) -> (..., every rank's P): the pixels of the ranks whose
+    pixels differ, in rank order (their counts may differ under spatial
+    sharding)."""
+    if mesh.spatial():
+        return mesh.gather_cat(t, -1)
+    g = mesh.gather_rows(t, mesh.pixel_group())
+    return g.movedim(0, -2).flatten(-2)
+
+
+def _image_pixels(t: torch.Tensor) -> torch.Tensor:
+    """(B, ..., P) -> each image's pixels of every rank of its model group,
+    under spatial sharding; ``t`` otherwise."""
+    return mesh.gather_cat(t, -1, mesh.model_group()) if mesh.spatial() else t
 
 
 def _valid_mask(target: torch.Tensor, num_classes: int, ignore_index: int):
@@ -71,7 +98,7 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     lf = _at_least_f32(logits)
     valid = _valid_mask(target, logits.shape[1], ignore_index)
     ce, w = _per_pixel_ce(lf, target, valid, weight)
-    ce_sum, w_sum = mesh.global_sums(ce.sum(), w.sum().detach())
+    ce_sum, w_sum = _sums(ce.sum(), w.sum().detach())
     return ce_sum / w_sum.clamp(min=1.0)
 
 
@@ -86,7 +113,7 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor,
     safe = torch.where(valid, target.long(), torch.zeros_like(target, dtype=torch.long))
     intersection = (probs.gather(1, safe.unsqueeze(1)).squeeze(1) * mask).sum()
     denom = (probs * mask.unsqueeze(1)).sum() + mask.sum()
-    intersection, denom = mesh.global_sums(intersection, denom)
+    intersection, denom = _sums(intersection, denom)
     return 1.0 - (2.0 * intersection + smooth) / (denom + smooth)
 
 
@@ -103,7 +130,7 @@ def focal_loss(logits: torch.Tensor, target: torch.Tensor,
     focal = (1.0 - pt) ** gamma * ce * valid.to(lf.dtype)
     if not mesh.initialized():
         return focal.mean()
-    total, count = mesh.global_sums(focal.sum(), lf.new_tensor(float(focal.numel())))
+    total, count = _sums(focal.sum(), lf.new_tensor(float(focal.numel())))
     return total / count
 
 
@@ -146,12 +173,13 @@ def lovasz_softmax(logits: torch.Tensor, target: torch.Tensor,
     vmask = valid.to(lf.dtype).expand(b, c, -1)
     errors = (fg - probs).abs() * vmask
     if not per_image:
-        if mesh.initialized():
-            # every rank's pixels, in rank order: the global batch's columns
-            errors, fg, vmask = mesh.gather_rows(
-                torch.stack([errors, fg, vmask.detach()])).transpose(0, 1).flatten(1, 2)
         errors, fg, vmask = (t.transpose(0, 1).reshape(1, c, -1)
                              for t in (errors, fg, vmask))
+        if mesh.initialized():
+            # every rank's pixels, in rank order: the global batch's columns
+            errors, fg, vmask = _all_pixels(torch.stack([errors, fg, vmask.detach()]))
+    elif mesh.initialized():
+        errors, fg, vmask = _image_pixels(torch.stack([errors, fg, vmask.detach()]))
     errors_sorted, perm = torch.sort(errors, dim=-1, descending=True, stable=True)
     fg_sorted, valid_sorted = fg.gather(-1, perm), vmask.gather(-1, perm)
     grad, gts = _jaccard_increments(fg_sorted, valid_sorted)
@@ -177,7 +205,7 @@ def lovasz_softmax_binned(logits: torch.Tensor, target: torch.Tensor,
     valid = _valid_mask(tflat, c, ignore_index)
     gts = torch.bincount(torch.where(valid, tflat, c), minlength=c + 1)[:c].to(lf.dtype)
     # the global batch's histograms
-    cum_fg, cum_all, cum_err, gts = mesh.global_sums(cum_fg, cum_all, cum_err, gts)
+    cum_fg, cum_all, cum_err, gts = _sums(cum_fg, cum_all, cum_err, gts)
     inter = gts[:, None] - cum_fg
     union = gts[:, None] + (cum_all - cum_fg)
     jacc = 1.0 - inter / union.clamp(min=1e-12)
@@ -201,9 +229,11 @@ def lovasz_hinge(logits: torch.Tensor, target: torch.Tensor,
     lf = _at_least_f32(logits).reshape(b, -1)
     tg = target.reshape(b, -1)
     if not per_image:
-        if mesh.initialized():  # every rank's pixels, in rank order
-            lf, tg = mesh.gather_rows(lf), mesh.gather_rows(tg)
         lf, tg = lf.reshape(1, -1), tg.reshape(1, -1)
+        if mesh.initialized():  # every rank's pixels, in rank order
+            lf, tg = _all_pixels(lf), _all_pixels(tg)
+    elif mesh.initialized():
+        lf, tg = _image_pixels(lf), _image_pixels(tg)
     valid = tg != ignore_index
     vmask = valid.to(lf.dtype)
     tgf = torch.where(valid, tg, torch.zeros_like(tg)).to(lf.dtype)
@@ -227,7 +257,7 @@ def binary_xloss(logits: torch.Tensor, target: torch.Tensor,
     valid = (tg != ignore_index).to(lf.dtype)
     tgf = torch.where(tg != ignore_index, tg, torch.zeros_like(tg)).to(lf.dtype)
     loss = lf.clamp(min=0.0) - lf * tgf + torch.log1p(torch.exp(-lf.abs()))
-    total, count = mesh.global_sums((loss * valid).sum(), valid.sum())
+    total, count = _sums((loss * valid).sum(), valid.sum())
     return total / count.clamp(min=1.0)
 
 

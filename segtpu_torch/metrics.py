@@ -33,12 +33,12 @@ class SegStats(NamedTuple):
         return SegStats(*(a + b for a, b in zip(self, other)))
 
     def all_reduce(self) -> "SegStats":
-        """The sums over the ranks of the process group (one collective);
-        ``self`` outside a group. The trainer calls it once an epoch, before
-        :func:`summarize`."""
+        """The sums over the ranks whose pixels differ (one collective; every
+        rank without a model axis); ``self`` outside a group. The trainer
+        calls it once an epoch, before :func:`summarize`."""
         from segtpu_torch.core import mesh
 
-        return SegStats(*mesh.global_sums(*self))
+        return SegStats(*mesh.global_sums(*self, group=mesh.pixel_group()))
 
 
 def seg_stats(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> SegStats:

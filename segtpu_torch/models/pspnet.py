@@ -9,7 +9,10 @@ transition3's output with a hidden width of a quarter of the backbone's
 output (480 for DenseNet-201, whose transition3 gives 896 channels).
 
 Inputs and logits are NCHW. ``forward`` returns ``{"out": logits}`` and, in
-train mode with ``use_aux``, ``"aux"`` too. Parameter names follow the
+train mode with ``use_aux``, ``"aux"`` too. PSPNet takes segtpu's
+``remat_backbone`` (each residual block recomputed in the backward) and
+``s2d_stem`` (``ops/s2d.py``), and can be sharded over H
+(``core/spatial.py``; total stride 8), which swaps its pool and resizes. Parameter names follow the
 original torch repo (``initial.*``, ``layerX.*``, ``master_branch.*``,
 ``auxiliary_branch.*``), so ``segtpu.utils.weight_convert.convert_pspnet``
 reads this model's ``state_dict()`` and the original ``.pth`` files load.
@@ -27,6 +30,7 @@ from segtpu_torch.backbones.resnet import ResNetFeatures, run_features
 from segtpu_torch.nn.blocks import PSPModule
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
                                     kaiming_normal_init, zeros_init)
+from segtpu_torch.ops.pooling import max_pool
 from segtpu_torch.ops.resize import resize_bilinear
 from segtpu_torch.pretrained import Layout, resnet_rules
 
@@ -49,11 +53,17 @@ class _AuxBranch(nn.Sequential):
 class PSPNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("initial", "layer1", "layer2", "layer3", "layer4")
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 8
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _max_pool = staticmethod(max_pool)
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  backbone: str = "resnet152", pretrained: Union[bool, str] = False,
                  use_aux: bool = True, freeze_bn: bool = False,
                  freeze_backbone: bool = False, pallas_stem_wgrad: bool = False,
+                 remat_backbone: bool = False, s2d_stem: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         # freeze_backbone is the optimizer's (core/state.py), as in segtpu
@@ -61,7 +71,8 @@ class PSPNet(FreezableBN):
         self.pretrained, self.backbone_name = pretrained, backbone
         feats = ResNetFeatures(arch=backbone, style="encoding",
                                in_channels=in_channels,
-                               pallas_stem_wgrad=pallas_stem_wgrad)
+                               pallas_stem_wgrad=pallas_stem_wgrad,
+                               remat_blocks=remat_backbone, s2d_stem=s2d_stem)
         self.initial = feats.initial
         self.layer1, self.layer2 = feats.layer1, feats.layer2
         self.layer3, self.layer4 = feats.layer3, feats.layer4
@@ -76,11 +87,11 @@ class PSPNet(FreezableBN):
     def forward(self, x):
         size = x.shape[-2:]
         feats = run_features(self.initial, [self.layer1, self.layer2,
-                                            self.layer3, self.layer4], x)
-        out = resize_bilinear(self.master_branch(feats[3]), size)
+                                            self.layer3, self.layer4], x, self._max_pool)
+        out = self._resize(self.master_branch(feats[3]), size)
         result = {"out": out}
         if self.use_aux and self.training:
-            result["aux"] = resize_bilinear(self.auxiliary_branch(feats[2]), size)
+            result["aux"] = self._resize(self.auxiliary_branch(feats[2]), size)
         return result
 
     def pretrained_layout(self) -> Layout:

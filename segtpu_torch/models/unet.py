@@ -11,7 +11,10 @@ align-corners resizes onto the skips, a last one onto the input where
 needed, and a bias-free 1x1 ``conv7``; no activation in its decoder, as the
 original.
 
-Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``.
+Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. UNet
+can be sharded over H (``core/spatial.py``; total stride 16): its pools,
+up-convs and resizes then work in global coordinates, and a resize onto a
+skip compares the maps' global sizes.
 Parameter names follow the original (UNet: ``start_conv``,
 ``down{i}.down_conv``, ``middle_conv``, ``up{i}.{up,up_conv}``,
 ``final_conv``; UNetResnet: ``initial``, ``layerX``, ``conv{1..7}``,
@@ -50,18 +53,24 @@ class X2Conv(nn.Sequential):
 class _Encoder(nn.Module):
     """``x2conv`` then a ceil-mode 2x2 max pool (the original ``encoder``)."""
 
+    #: swapped per instance by core/spatial.py's shard_windows
+    _max_pool = staticmethod(max_pool)
+
     def __init__(self, in_ch: int, features: int):
         super().__init__()
         self.down_conv = X2Conv(in_ch, features)
 
     def forward(self, x):
-        return max_pool(self.down_conv(x), 2, ceil_mode=True)
+        return self._max_pool(self.down_conv(x), 2, ceil_mode=True)
 
 
 class _Decoder(nn.Module):
     """Transposed conv (k 2, s 2) halving the width, resize onto the skip
     where the sizes differ, concat ``[skip, y]``, ``x2conv`` (the original
     ``decoder``)."""
+
+    #: swapped per instance by core/spatial.py's shard_windows
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
@@ -70,13 +79,15 @@ class _Decoder(nn.Module):
         self.up_conv = X2Conv(in_ch // 2 + features, features)
 
     def forward(self, skip, y):
-        y = resize_bilinear(self.up(y), skip.shape[-2:], align_corners=True)
+        y = self._resize(self.up(y), skip.shape[-2:], align_corners=True)
         return self.up_conv(torch.cat([skip, y], dim=1))
 
 
 class UNet(FreezableBN):
     #: no backbone: every parameter trains at lr
     backbone_modules = ()
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 16
 
     def __init__(self, num_classes: int, in_channels: int = 3, freeze_bn: bool = False,
                  generator: Optional[torch.Generator] = None):

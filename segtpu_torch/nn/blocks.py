@@ -49,6 +49,8 @@ class PSPModule(nn.Module):
     Keys follow the original ``_PSPModule``: ``stages.{i}.{1,2}`` and
     ``bottleneck.{0,1}``. Index 0 of each stage held its pool there; here
     the pools of every bin run first, in :func:`adaptive_avg_pool_multi`.
+    Under spatial sharding the bins are the whole image's on every rank of a
+    model group, so the stages' BNs are marked ``replicated_maps``.
     """
 
     def __init__(self, in_ch: int, bin_sizes: Sequence[int] = (1, 2, 3, 6),
@@ -63,18 +65,22 @@ class PSPModule(nn.Module):
                                  weight_init=kaiming_normal_init),
                           batch_norm(branch_ch), nn.ReLU(inplace=True))
             for _ in self.bin_sizes)
+        for stage in self.stages:
+            stage[2].replicated_maps = True
         self.bottleneck = nn.Sequential(
             conv2d(in_ch + branch_ch * len(self.bin_sizes), out_ch, 3,
                    padding=1, weight_init=kaiming_normal_init),
             batch_norm(out_ch), nn.ReLU(inplace=True), nn.Dropout(0.1))
 
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _pool_bins = staticmethod(adaptive_avg_pool_multi)
+    _resize = staticmethod(resize_bilinear)
+
     def forward(self, x):
         size = x.shape[-2:]
         pyramids = [x]
-        for stage, pooled in zip(self.stages,
-                                 adaptive_avg_pool_multi(x, self.bin_sizes)):
-            pyramids.append(resize_bilinear(stage(pooled), size,
-                                            align_corners=True))
+        for stage, pooled in zip(self.stages, self._pool_bins(x, self.bin_sizes)):
+            pyramids.append(self._resize(stage(pooled), size, align_corners=True))
         return self.bottleneck(torch.cat(pyramids, dim=1))
 
 

@@ -5,7 +5,8 @@ Counterpart of ``segtpu/nn/layers.py``. Convolutions are ``nn.Conv2d`` and
 0.1, eps 1e-5: biased variance to normalize, unbiased for the running
 buffer, as segtpu's BatchNorm). Under a process group of more than one
 rank, :func:`convert_global_bn` makes it :class:`GlobalBatchNorm2d`, whose
-statistics are the global batch's, as segtpu's under its mesh.
+statistics are the global batch's, as segtpu's under its mesh (over the
+ranks whose pixels differ: ``core/mesh.py``'s ``pixel_group``).
 
 Initializers take an explicit ``torch.Generator``. A conv built with
 :func:`conv2d` remembers its initializers, and :func:`init_parameters`
@@ -15,12 +16,14 @@ function of its seed.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], None]
 
@@ -105,18 +108,18 @@ class _GlobalBN(torch.autograd.Function):
     y and dx in the input's dtype."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
         from segtpu_torch.core import mesh
 
         c = x.shape[1]
         dims = (0, 2, 3)
         xf = x if x.dtype == torch.float64 else x.float()
         local = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)])
-        total = mesh.global_sum(local)
+        total = mesh.global_sum(local, group)
         count = total[c]
         mean = total[:c] / count
         xc = xf - mean.view(1, c, 1, 1)
-        var = mesh.global_sum((xc * xc).sum(dims)) / count
+        var = mesh.global_sum((xc * xc).sum(dims), group) / count
         invstd = torch.rsqrt(var + eps)
         with torch.no_grad():
             running_mean.mul_(1 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
@@ -124,6 +127,7 @@ class _GlobalBN(torch.autograd.Function):
             running_var.mul_(1 - momentum).add_(unbiased.to(running_var.dtype),
                                                 alpha=momentum)
         ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
         y = xc * (invstd * weight.to(xf.dtype)).view(1, c, 1, 1) + bias.to(xf.dtype).view(
             1, c, 1, 1)
         return y.to(x.dtype)
@@ -139,13 +143,13 @@ class _GlobalBN(torch.autograd.Function):
         dyf = dy.to(xf.dtype)
         xhat = (xf - mean.view(1, c, 1, 1)) * invstd.view(1, c, 1, 1)
         sum_dy, sum_dy_xhat = dyf.sum(dims), (dyf * xhat).sum(dims)
-        total = mesh.global_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        total = mesh.global_sum(torch.cat([sum_dy, sum_dy_xhat]), ctx.group)
         mean_dy, mean_dy_xhat = (total[:c] / count).view(1, c, 1, 1), (
             total[c:] / count).view(1, c, 1, 1)
         scale = (weight.to(xf.dtype) * invstd).view(1, c, 1, 1)
         dx = scale * (dyf - mean_dy - xhat * mean_dy_xhat)
         return (dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class GlobalBatchNorm2d(nn.BatchNorm2d):
@@ -154,20 +158,30 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     its mesh. Through :class:`_GlobalBN` inside a process group; outside
     one, and in eval mode (``freeze_bn`` included), it is ``nn.BatchNorm2d``
     itself. The running variance is unbiased with the global count. Same
-    parameters, buffers and state-dict keys as ``nn.BatchNorm2d``."""
+    parameters, buffers and state-dict keys as ``nn.BatchNorm2d``.
+
+    The statistics run over the ranks whose pixels differ (the world, or
+    the data group under tensor parallelism alone). A BN whose maps are
+    replicated on the model ranks even under spatial sharding (the PSP
+    bins; ``replicated_maps`` set by its model) takes the data group, so
+    its count is the batch's, not the model axis's multiple of it."""
+
+    #: set on a BN that normalizes maps every model rank holds whole
+    replicated_maps = False
 
     def forward(self, x):
         from segtpu_torch.core import mesh
 
         if not (self.training and mesh.initialized()):
             return super().forward(x)
-        if x.numel() // x.shape[1] * mesh.world_size() <= 1:
+        group = mesh.image_group() if self.replicated_maps else mesh.pixel_group()
+        if x.numel() // x.shape[1] * mesh.group_size(group) <= 1:
             raise ValueError(f"Expected more than 1 value per channel when training, "
                              f"got input size {tuple(x.shape)} on "
-                             f"{mesh.world_size()} rank(s)")
+                             f"{mesh.group_size(group)} rank(s)")
         self.num_batches_tracked.add_(1)
         return _GlobalBN.apply(x, self.weight, self.bias, self.running_mean,
-                               self.running_var, self.momentum, self.eps)
+                               self.running_var, self.momentum, self.eps, group)
 
 
 def convert_global_bn(model: nn.Module, force: bool = False) -> int:
@@ -185,6 +199,38 @@ def convert_global_bn(model: nn.Module, force: bool = False) -> int:
             m.__class__ = GlobalBatchNorm2d
             n += 1
     return n
+
+
+@contextlib.contextmanager
+def replay_norms(norms):
+    """A checkpoint's recompute: the BNs normalize with the batch's
+    statistics as in the forward, but update copies of their running
+    statistics and ``num_batches_tracked``, which are dropped after; the
+    forward's update stays the only one."""
+    buffers = ("running_mean", "running_var", "num_batches_tracked")
+    kept = [[getattr(bn, b) for b in buffers] for bn in norms]
+    for bn, values in zip(norms, kept):
+        for b, v in zip(buffers, values):
+            setattr(bn, b, v.clone())
+    try:
+        yield
+    finally:
+        for bn, values in zip(norms, kept):
+            for b, v in zip(buffers, values):
+                setattr(bn, b, v)
+
+
+def remat(fn, module: nn.Module, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, the
+    generators' state preserved, so dropout draws the same masks again),
+    the recompute replaying ``module``'s BatchNorms with
+    :func:`replay_norms`; ``fn(*args)`` itself where no gradient is
+    recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    norms = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay_norms(norms)))
 
 
 class FreezableBN(nn.Module):

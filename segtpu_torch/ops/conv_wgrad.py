@@ -12,6 +12,11 @@ stem_conv_wgrad.cu`` (or raises); on a CPU tensor it runs
 conv, the backward's weight gradient is :func:`stem_conv_wgrad`, and the
 input gradient is zero, which is right only where the conv reads the model
 input.
+
+Each takes the H padding as ``pad_h = (top, bottom)``, ``(k//2, k//2)`` for
+a whole image: a band of an image sharded over H (``core/spatial.py``)
+carries its halo rows in x and pads only at the image's own top and
+bottom, so the bands' dW sum to the whole image's.
 """
 
 from __future__ import annotations
@@ -43,18 +48,26 @@ SMEM_TARGET = 110 * 1024  # a block's share when two fit on an SM: what sizes th
 MAX_PARTIAL_FLOATS = 1 << 24
 
 
-def _out_size(size: int, k: int) -> int:
-    return (size + 2 * (k // 2) - k) // 2 + 1
+def _out_size(size: int, k: int, pad=None) -> int:
+    top, bottom = (k // 2, k // 2) if pad is None else pad
+    return (size + top + bottom - k) // 2 + 1
 
 
-def _check_shapes(x, dy, k):
+def _pad_h(k: int, pad_h):
+    top, bottom = (k // 2, k // 2) if pad_h is None else (int(pad_h[0]), int(pad_h[1]))
+    if not (0 <= top <= k and 0 <= bottom <= k):
+        raise ValueError(f"stem_conv_wgrad: H padding {(top, bottom)} outside [0, {k}]")
+    return top, bottom
+
+
+def _check_shapes(x, dy, k, pad_h=None):
     if k % 2 != 1:
         raise ValueError(f"stem_conv_wgrad takes an odd kernel size, got {k}")
     if x.dim() != 4 or dy.dim() != 4:
         raise ValueError(f"stem_conv_wgrad takes NHWC x and dy, got "
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
     n, h, w, _ = x.shape
-    want = (n, _out_size(h, k), _out_size(w, k))
+    want = (n, _out_size(h, k, _pad_h(k, pad_h)), _out_size(w, k))
     if tuple(dy.shape[:3]) != want:
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
                          f"{tuple(x.shape)}: want {want + (dy.shape[3],)}")
@@ -63,14 +76,17 @@ def _check_shapes(x, dy, k):
             raise TypeError(f"stem_conv_wgrad: {name} must be floating, got {t.dtype}")
 
 
-def stem_conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) -> torch.Tensor:
+def stem_conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7,
+                          pad_h=None) -> torch.Tensor:
     """Plain PyTorch version: bf16-rounded x and dy, fp32 sums, one einsum
-    per tap over the stride-2 slice of the padded input."""
-    _check_shapes(x, dy, kernel)
+    per tap over the stride-2 slice of the padded input (``pad_h`` zero
+    rows above and below, ``k//2`` each by default)."""
+    _check_shapes(x, dy, kernel, pad_h)
     k, p = kernel, kernel // 2
+    top, bottom = _pad_h(k, pad_h)
     xf = x.to(torch.bfloat16).float()
     dyf = dy.to(torch.bfloat16).float()
-    xp = F.pad(xf, (0, 0, p, p, p, p))
+    xp = F.pad(xf, (0, 0, p, p, top, bottom))
     ho, wo = dy.shape[1], dy.shape[2]
     taps = []
     for kh in range(k):
@@ -250,7 +266,7 @@ def _lib():
     from segtpu_torch.ops import build
 
     lib = build.load(_LIB_NAME)
-    lib.stem_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+    lib.stem_conv_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 16
                                     + [ctypes.c_void_p])
     lib.stem_conv_wgrad.restype = ctypes.c_int
     lib.stem_conv_wgrad_smem_bytes.argtypes = [ctypes.c_int] * 6
@@ -282,35 +298,43 @@ def _launch_plan(n, ho, wo, c, co, k, device_index):
     raise RuntimeError(f"stem_conv_wgrad: no block fits on an SM at C={c}, k={k}")
 
 
-def stem_launch_plan(x_shape, co: int, k: int, device) -> Tuple[StemPlan, int, int]:
+def stem_launch_plan(x_shape, co: int, k: int, device,
+                     pad_h=None) -> Tuple[StemPlan, int, int]:
     """(plan, blocks per SM, shared memory bytes per block) of the stem
-    kernel for NHWC x of ``x_shape`` and CO output channels on a CUDA
-    ``device``, as the CUDA runtime reports the kernel's occupancy there."""
+    kernel for NHWC x of ``x_shape`` (H padded by ``pad_h``) and CO output
+    channels on a CUDA ``device``, as the CUDA runtime reports the kernel's
+    occupancy there."""
     n, h, w, c = x_shape
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _launch_plan(n, _out_size(h, k), _out_size(w, k), c, co, k, index)
+    return _launch_plan(n, _out_size(h, k, _pad_h(k, pad_h)), _out_size(w, k), c, co, k,
+                        index)
 
 
-def _launch(lib, xb, dyb, k: int, plan: StemPlan, partial, out) -> None:
+def _launch(lib, xb, dyb, k: int, plan: StemPlan, partial, out, pad_top=None) -> None:
     """Launch the kernel of ``lib`` on bf16 NHWC-contiguous ``xb`` and
     ``dyb`` with ``plan``, into ``out`` (through ``partial``, which holds
     ``plan.row_blocks * k*k*C*CO`` floats where there is more than one row
-    block), on the current stream."""
+    block), on the current stream; ``pad_top`` zero rows above x (``k//2``
+    by default)."""
     n, h, w, c = xb.shape
     _, ho, wo, co = dyb.shape
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     err = lib.stem_conv_wgrad(
         xb.data_ptr(), dyb.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, h, w, c, ho, wo, co, k, plan.nt, plan.kr, plan.kc, plan.cs,
+        n, h, w, c, ho, wo, co, k, k // 2 if pad_top is None else pad_top,
+        plan.nt, plan.kr, plan.kc, plan.cs,
         int(plan.span), plan.stages, plan.row_blocks, stream)
     if err != 0:
         raise RuntimeError(f"stem_conv_wgrad kernel launch failed: CUDA error {err}")
 
 
-def stem_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) -> torch.Tensor:
+def stem_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7,
+                    pad_h=None) -> torch.Tensor:
     """dL/dW (HWIO ``(k, k, C, CO)``, fp32) of conv k x k / stride 2 /
-    pad k//2, from NHWC ``x`` and ``dy``.
+    pad k//2, from NHWC ``x`` and ``dy``; ``pad_h = (top, bottom)`` zero
+    rows in H instead (a band of an image sharded over H, x carrying its
+    halo rows).
 
     CPU tensors go to :func:`stem_conv_wgrad_plain`. CUDA tensors launch the
     CUDA kernel, which reads bf16 NHWC-contiguous inputs: other dtypes are
@@ -319,16 +343,16 @@ def stem_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) -> torch
     first, each copy counted in ``stem_conv_wgrad.copies``. Each launch
     adds one to ``stem_conv_wgrad.launches``.
     """
-    _check_shapes(x, dy, kernel)
+    _check_shapes(x, dy, kernel, pad_h)
     if x.device.type == "cpu" and dy.device.type == "cpu":
-        return stem_conv_wgrad_plain(x, dy, kernel)
+        return stem_conv_wgrad_plain(x, dy, kernel, pad_h)
     if x.device.type != "cuda" or dy.device != x.device:
         raise ValueError(f"stem_conv_wgrad: x on {x.device} and dy on "
                          f"{dy.device}; both must be on one CUDA device")
     k, c, co = kernel, x.shape[3], dy.shape[3]
     with torch.cuda.device(x.device):
         lib = _lib()
-        plan, _, _ = stem_launch_plan(x.shape, co, k, x.device)
+        plan, _, _ = stem_launch_plan(x.shape, co, k, x.device, pad_h)
         xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
         if not xb.is_contiguous() or not dyb.is_contiguous():
             stem_conv_wgrad.copies += 1
@@ -341,7 +365,7 @@ def stem_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, kernel: int = 7) -> torch
         if plan.row_blocks > 1:
             partial = torch.empty((plan.row_blocks, k * k * c, co),
                                   dtype=torch.float32, device=x.device)
-        _launch(lib, xb, dyb, k, plan, partial, out)
+        _launch(lib, xb, dyb, k, plan, partial, out, _pad_h(k, pad_h)[0])
         stem_conv_wgrad.launches += 1
     return out
 
@@ -351,23 +375,27 @@ stem_conv_wgrad.copies = 0
 
 
 class StemConv(torch.autograd.Function):
-    """Conv k x k / stride 2 / pad k//2, bias-free, NCHW, whose weight
-    gradient is :func:`stem_conv_wgrad`."""
+    """Conv k x k / stride 2 / pad k//2 (H padded by ``pad_h``), bias-free,
+    NCHW, whose weight gradient is :func:`stem_conv_wgrad`."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, weight, k: int):
+    def forward(ctx, x, weight, k: int, pad_h=None):
         ctx.save_for_backward(x)
-        ctx.k = k
+        ctx.k, ctx.pad_h = k, _pad_h(k, pad_h)
         ctx.weight_dtype = weight.dtype
-        return F.conv2d(x, weight.to(x.dtype), stride=2, padding=k // 2)
+        p = k // 2
+        if ctx.pad_h == (p, p):
+            return F.conv2d(x, weight.to(x.dtype), stride=2, padding=p)
+        return F.conv2d(F.pad(x, (0, 0) + ctx.pad_h), weight.to(x.dtype), stride=2,
+                        padding=(0, p))
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
         dw = stem_conv_wgrad(x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1),
-                             kernel=ctx.k)
+                             kernel=ctx.k, pad_h=ctx.pad_h)
         dw = dw.permute(3, 2, 0, 1).to(ctx.weight_dtype)
         dx = None
         if ctx.needs_input_grad[0]:
@@ -375,7 +403,7 @@ class StemConv(torch.autograd.Function):
             # is never used, so a zero dx is free. Do NOT use StemConv
             # mid-network where a real dx is needed.
             dx = torch.zeros_like(x)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 class StemConv2d(nn.Module):

@@ -17,7 +17,10 @@ default). One device runs in this process, with no process group; more
 are started here, joined in one group (NCCL on the card, gloo on the CPU),
 rank i on the i-th device. Under torchrun (``RANK`` and ``WORLD_SIZE``
 set) this process joins torchrun's group instead. The config's
-``batch_size`` is each node's, split over its devices.
+``batch_size`` is each node's, split over its devices. With
+``trainer.model_parallel`` the devices form segtpu's (data, model) mesh:
+``devices`` and ``device_ids`` count all of it, and the batch splits over
+its data ranks (``core/mesh.py``).
 """
 
 from __future__ import annotations

@@ -31,8 +31,19 @@ save), events, the val grid, the Logger's entries and the profile; the run
 directory's timestamp is rank 0's. A SIGTERM to any rank stops every rank
 at the same iteration: the flag is agreed at each iteration boundary.
 ``trainer.devices: N`` and ``trainer.device_ids`` ("0,2" or ``[0, 2]``)
-must match the group's size; a rank's device is ``cuda:<device_ids[local
-rank]>`` (or ``cuda:<local rank>``) unless the caller names one.
+must match the group's size (the whole mesh, data x model); a rank's device
+is ``cuda:<device_ids[local rank]>`` (or ``cuda:<local rank>``) unless the
+caller names one.
+
+segtpu's model axis and memory knobs: ``trainer.model_parallel: N`` lays
+the ranks out as a (data, model) mesh with N model ranks
+(``core/mesh.py``) and shards every conv of 256 or more output channels
+over them (``core/tensor_parallel.py``, after the pretrained load, before
+the optimizer); ``trainer.spatial`` splits each image's H over the model
+ranks as well (``core/spatial.py``; PSPNet and UNet), each rank loading its
+data index's rows and keeping its band of them; ``trainer.remat`` recomputes
+the forward in the backward (``core/steps.py``). Checkpoints hold the
+one-device layout either way.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from segtpu_torch import losses as loss_lib
 from segtpu_torch import metrics as metrics_lib
 from segtpu_torch import resolve_device
 from segtpu_torch.checkpoint import load_checkpoint, save_checkpoint
-from segtpu_torch.core import mesh
+from segtpu_torch.core import mesh, spatial, tensor_parallel
 from segtpu_torch.core.state import TrainState, make_optimizer
 from segtpu_torch.core.steps import make_eval_step, make_train_step
 from segtpu_torch.data import DevicePrefetcher
@@ -66,10 +77,7 @@ from segtpu_torch.utils.logger import setup_logging
 from segtpu_torch.utils.tensorboard import SummaryWriter
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-#: segtpu's trainer keys that the port does not implement yet: each is
-#: ignored with a warning
-_NOT_PORTED = ("remat",)
-#: the stride between the ranks' dropout seeds
+#: the stride between the data indices' dropout seeds
 _RANK_SEED_STRIDE = 1_000_003
 #: the val batches whose first image goes into the grid
 _VIZ_BATCHES = 15
@@ -142,13 +150,15 @@ class Trainer:
         self.ignore_index = config.get("ignore_index", 255)
         self.loss_fn = loss_lib.get_loss(loss) if isinstance(loss, str) else loss
 
-        model_parallel = int(cfg_trainer.get("model_parallel", 1))
-        spatial = bool(cfg_trainer.get("spatial", False))
-        if model_parallel > 1 or spatial:
-            raise ValueError(
-                f"trainer.model_parallel={model_parallel}/spatial={spatial} need a "
-                f"'model' mesh axis; segtpu_torch's devices form the data axis "
-                f"alone: it has no model axis (ROADMAP)")
+        self.model_parallel = int(cfg_trainer.get("model_parallel", 1))
+        self.spatial = bool(cfg_trainer.get("spatial", False))
+        self.remat = bool(cfg_trainer.get("remat", False))
+        mesh.set_model_axis(self.model_parallel, self.spatial)
+        self.train_rows = self.val_rows = None
+        if self.spatial:
+            stride = spatial.check_model(model)
+            self.train_rows = self._rows(train_loader, stride)
+            self.val_rows = val_loader and self._rows(val_loader, stride)
         dtype_name = cfg_trainer.get("compute_dtype", "bfloat16")
         if dtype_name not in _DTYPES:
             raise ValueError(f"unsupported trainer.compute_dtype {dtype_name!r}; "
@@ -157,10 +167,6 @@ class Trainer:
         self.epochs = cfg_trainer["epochs"]
         self.save_period = cfg_trainer.get("save_period", 10)
         self.save_per_iters = cfg_trainer.get("save_per_iters", 0)
-        for key in _NOT_PORTED:
-            if cfg_trainer.get(key):
-                self.logger.warning(f"trainer.{key} is not ported yet "
-                                    f"(ROADMAP); ignored")
         self.start_epoch = 1
         self._resume_iter = 0
         self._sigterm = False  # set by the handler, on this rank
@@ -176,6 +182,16 @@ class Trainer:
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         convert_global_bn(model)  # at one rank, nothing changes
+        # in place, before the model axis slices the weights (segtpu's order:
+        # the state is sharded after the pretrained load) and before a
+        # resume, which overwrites it
+        maybe_load_pretrained(model, config)
+        #: the names of the convs sharded over the model axis
+        self.sharded = []
+        if self.model_parallel > 1:
+            # every rank's weights rank 0's, then each keeps its slices
+            mesh.broadcast_tensors(list(model.state_dict().values()))
+            self.sharded = tensor_parallel.shard_model(model)
         opt_cfg = config.get("optimizer", {"type": "SGD", "args": {}})
         sched_cfg = config.get("lr_scheduler", {"type": "Poly", "args": {}})
         optimizer, schedules = make_optimizer(
@@ -190,16 +206,17 @@ class Trainer:
             iters_per_epoch=max(len(train_loader), 1),
             **opt_cfg.get("args", {}))
         self.state = TrainState(model, optimizer, schedules)
-        # in place, so the optimizer keeps its parameters; before a resume,
-        # which overwrites it, and before the wrap, whose first broadcast
-        # then leaves every rank with rank 0's weights
-        maybe_load_pretrained(model, config)
-        if self.world > 1:
+        if self.model_parallel > 1:
+            self.state.model_axis()
+        elif self.world > 1:
+            # the wrap's first broadcast leaves every rank with rank 0's weights
             self.state.data_parallel()
         # dropout draws from the global generator: seeded from the config as
-        # segtpu seeds its dropout key (seed + 1), each rank on its own
-        # stream, restored by a resume
-        torch.manual_seed(config.get("seed", 0) + 1 + _RANK_SEED_STRIDE * mesh.rank())
+        # segtpu seeds its dropout key (seed + 1), each data index on its own
+        # stream (the model ranks of one draw the same masks), restored by a
+        # resume
+        torch.manual_seed(config.get("seed", 0) + 1
+                          + _RANK_SEED_STRIDE * mesh.data_index())
 
         # uint8 transport: the loaders ship raw pixels and the steps
         # normalize on the device; train and val must agree on it
@@ -211,7 +228,8 @@ class Trainer:
                            if dev_norm else None)
         self.train_step = make_train_step(
             self.loss_fn, ignore_index=self.ignore_index,
-            compute_dtype=self.compute_dtype, norm_stats=self.norm_stats)
+            compute_dtype=self.compute_dtype, norm_stats=self.norm_stats,
+            remat=self.remat)
         self.eval_step = make_eval_step(
             self.loss_fn, ignore_index=self.ignore_index,
             compute_dtype=self.compute_dtype, norm_stats=self.norm_stats)
@@ -238,7 +256,8 @@ class Trainer:
             with open(os.path.join(self.checkpoint_dir, "config.json"), "w") as f:
                 json.dump(config, f, indent=4, sort_keys=True)
         self.writer = None
-        if cfg_trainer.get("tensorboard", True) and mesh.is_main():
+        self.viz = cfg_trainer.get("tensorboard", True)  # the same on every rank
+        if self.viz and mesh.is_main():
             self.writer = SummaryWriter(os.path.join(
                 cfg_trainer.get("log_dir", "saved/runs"), config.get("name", "run"),
                 start_time))
@@ -251,6 +270,21 @@ class Trainer:
     @property
     def model(self):
         return self.state.model
+
+    def _rows(self, loader, stride) -> spatial.Rows:
+        """The layout of ``loader``'s images over the model ranks: its crop
+        must be static, so every step's batch shares it."""
+        crop = loader.dataset.crop_size
+        if not crop:
+            raise ValueError(f"trainer.spatial needs a static crop_size on every "
+                             f"loader (got {crop!r})")
+        return spatial.split(int(crop), stride, self.model_parallel)
+
+    @staticmethod
+    def _rows_args(rows):
+        """The steps' ``rows`` argument under spatial sharding; none
+        otherwise."""
+        return () if rows is None else (rows,)
 
     def train(self):
         """Runs the epochs; returns the per-epoch logs. A SIGTERM ends the
@@ -381,12 +415,13 @@ class Trainer:
         # trace that a SIGTERM (or a failed step) ends early, so it is whole.
         try:
             for it, (images, labels) in enumerate(
-                    DevicePrefetcher(self.train_loader, self.device)):
+                    DevicePrefetcher(self.train_loader, self.device, rows=self.train_rows)):
                 data_time.update(time.perf_counter() - tic)
                 if profiler is not None and it == self.profile_steps:
                     self._stop_profile(profiler)
                     profiler = None
-                loss, stats = self.train_step(self.state, images, labels)
+                loss, stats = self.train_step(self.state, images, labels,
+                                              *self._rows_args(self.train_rows))
                 total = total + stats
                 loss_acc += loss
                 n_iters += 1
@@ -453,23 +488,32 @@ class Trainer:
         """val_loss is weighted by each batch's valid pixels, so the padded
         tail batch does not bias it. With tensorboard, the first image of
         each of the first 15 batches goes into the val grid: its argmax is
-        taken on the device, and only that image is copied to the host."""
+        taken on the device, and only that image is copied to the host
+        (under spatial sharding its rows are gathered from its model ranks
+        first, so the grid shows the whole image)."""
         total = SegStats.zeros(self.num_classes, self.device)
         loss_acc = torch.zeros((), device=self.device)
         weight_acc = torch.zeros((), device=self.device)
         viz = []
-        for it, (images, labels) in enumerate(DevicePrefetcher(self.val_loader, self.device)):
-            loss, stats, logits = self.eval_step(self.model, images, labels)
-            if self.writer is not None and it < _VIZ_BATCHES:
-                pred = torch.argmax(logits[:1], dim=1)[0]
-                viz.append((images[0].cpu().numpy(), labels[0].cpu().numpy(),
-                            pred.cpu().numpy()))
+        rows = self.val_rows
+        for it, (images, labels) in enumerate(
+                DevicePrefetcher(self.val_loader, self.device, rows=rows)):
+            loss, stats, logits = self.eval_step(self.model, images, labels,
+                                                 *self._rows_args(rows))
+            if self.viz and it < _VIZ_BATCHES and (rows is not None
+                                                   or self.writer is not None):
+                first = (images[0], labels[0], torch.argmax(logits[:1], dim=1)[0])
+                if rows is not None:
+                    first = tuple(spatial.gather_image(t, rows) for t in first)
+                if self.writer is not None:
+                    viz.append(tuple(t.cpu().numpy() for t in first))
             total = total + stats
             loss_acc += loss * stats.labeled
             weight_acc += stats.labeled
         # each rank weighs the global loss by its own valid pixels: the sums
         # over the ranks weigh it by the global batch's
-        loss_acc, weight_acc = mesh.global_sums(loss_acc, weight_acc)
+        loss_acc, weight_acc = mesh.global_sums(loss_acc, weight_acc,
+                                                group=mesh.pixel_group())
         avg_loss = float(loss_acc) / max(float(weight_acc), 1e-12)
         log = self._log_dict("val_loss", avg_loss, total.all_reduce())
         if self.writer is not None:

@@ -95,6 +95,41 @@ def test_stem_wgrad_two_launches_are_bit_identical(shape, cuda_device):
     assert torch.equal(first, second)
 
 
+# a band of an image sharded over H: (n, h, w, c, co, k, first output row,
+# output rows), x carrying the halo rows the band's windows read; the top
+# band pads k//2 zero rows above, the bottom one below, a middle one none
+# (the PSPNet-R50 stem at 769 over 2 ranks: 196 / 189 output rows)
+STEM_BANDS = [(2, 769, 769, 3, 64, 3, 0, 196), (2, 769, 769, 3, 64, 3, 196, 189),
+              (2, 65, 65, 3, 64, 7, 8, 10), (2, 65, 65, 3, 64, 7, 0, 8),
+              (2, 65, 65, 3, 64, 7, 25, 8), (1, 33, 47, 5, 19, 3, 6, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", STEM_BANDS)
+def test_stem_wgrad_kernel_on_a_band_matches_plain(band, cuda_device):
+    """Explicit H padding: the kernel against its plain version on the band,
+    and the plain version of the band against the whole image's rows."""
+    n, h, w, c, co, k, o0, rows = band
+    p = k // 2
+    ho, wo = (h + 2 * p - k) // 2 + 1, (w + 2 * p - k) // 2 + 1
+    rng = np.random.default_rng(sum(band))
+    x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32)).to(cuda_device)
+    dy = torch.from_numpy(rng.normal(size=(n, ho, wo, co)).astype(np.float32)).to(cuda_device)
+    a, b = 2 * o0 - p, 2 * (o0 + rows - 1) - p + k
+    xb, dyb = x[:, max(a, 0):min(b, h)], dy[:, o0:o0 + rows]
+    pad = (max(0, -a), max(0, b - h))
+    before = cw.stem_conv_wgrad.launches
+    got = cw.stem_conv_wgrad(xb, dyb, kernel=k, pad_h=pad)
+    want = cw.stem_conv_wgrad_plain(xb, dyb, k, pad_h=pad)
+    torch.cuda.synchronize()
+    assert cw.stem_conv_wgrad.launches == before + 1
+    assert _rel_max(got, want) < WGRAD_TOL
+    # the whole image's dW with dy zero outside the band's rows
+    masked = torch.zeros_like(dy)
+    masked[:, o0:o0 + rows] = dyb
+    assert _rel_max(want, cw.stem_conv_wgrad_plain(x, masked, k)) < WGRAD_TOL
+
+
 @pytest.mark.cuda
 def test_stem_wgrad_takes_inputs_that_start_off_16_bytes(cuda_device):
     """x and dy that start 2 bytes past a 16-byte boundary: x (whose rows the

@@ -1,0 +1,586 @@
+"""segtpu's model axis in the port: tensor parallelism and spatial sharding
+on 4 gloo ranks on the CPU (segtpu's 2 x 2 mesh: data 2 x model 2), against
+segtpu on 4 of the virtual CPU devices and against the port as one process
+on the whole batch.
+
+One module fixture starts the 4 ranks once (``segtpu_torch.core.mesh.
+launch``) to run every case of ``tests/torch_axis_worker.py``; while they
+run, this process computes segtpu's side. The checks:
+
+* Layout: rank r's (data, model) place is that of device r in segtpu's
+  ``make_mesh`` grid at model_parallel 2 and 4; the groups, the node's rows
+  (split over the data ranks only) and the errors segtpu raises.
+* Halo ops on a 13-row map split 6 / 7: convs (k 1 to 7, dilation 1 to 4,
+  stride 1 and 2), the stem kernel's conv and the space-to-depth stem (k 3
+  and 7), max pools (stride 1 and 2, padded, ceil mode), bilinear
+  resizes (both ``align_corners`` modes, up and down, odd and even sizes,
+  from a sharded and from a replicated source) and the PSP bins equal the
+  unsharded op, output, input gradient and weight gradient, within 1e-12
+  relative (float64). Column-parallel convs (a depthwise one, a transposed
+  one) under TP alone likewise.
+* Collective axes: ``GlobalBatchNorm2d`` under TP takes the data batch's
+  count (its unbiased running variance is the whole batch's), under
+  spatial sharding the world's, and on replicated maps the data group's;
+  every loss under spatial sharding, the exact Lovász per image included,
+  is the whole batch's, value and logits gradient.
+* TP step: PSPNet-R18, float64, 1 and 3 SGD steps with its convs of 256 or
+  more channels sharded, against segtpu's ``make_train_step`` with
+  ``tp_sharding_tree`` on the 2 x 2 mesh from the same weights, with
+  ``tests/torch_zoo.py``'s tolerances; the sharded convs are segtpu's; the
+  ranks' weights and running statistics equal bit for bit after every step.
+* TP zoo: each of the 12 names takes a TP step (convs of 16 or more
+  channels sharded) whose gradients are one process's on the whole batch
+  within 1e-8 relative (float64), as in tests/test_torch_distributed.py.
+* Spatial steps: PSPNet-R18 and UNet at H that split unevenly (PSPNet 40:
+  24 / 16 rows; UNet 33: 32 / 1; UNet 48: 32 / 16) and evenly (32),
+  float64, 1 and 3 SGD steps and an eval step (its loss, and its seg stats
+  exactly) against one process (1e-8),
+  and against segtpu's ``make_train_step(spatial=True)`` on the 2 x 2 mesh
+  (PSPNet at 40, UNet at 48: see SEG_SPATIAL); each rank's activations have
+  its band's height.
+* Trainer: segtpu's ``test_trainer_parallelism_from_config`` config
+  (UNet, devices 4, model_parallel 2, spatial, remat) against segtpu's
+  Trainer: each step's loss within 1e-4 relative, the val metrics within
+  one unit of their rounding; the checkpoint resumes on 1 rank and on 4 to
+  the same state bit for bit; the val grid shows whole images.
+"""
+
+import glob
+import os
+import shutil
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import torch_axis_worker as w
+import torch_dist_worker as dw
+from segtpu import losses as seg_losses
+from segtpu.core import state as seg_state
+from segtpu.core.mesh import MODEL_AXIS, make_mesh, shard_state, tp_sharding_tree
+from segtpu.core.steps import make_eval_step as seg_make_eval_step
+from segtpu.core.steps import make_train_step as seg_make_train_step
+from segtpu.data.synthetic import Synthetic as SegtpuSynthetic
+from segtpu.models.pspnet import PSPNet as SegtpuPSPNet
+from segtpu.models.unet import UNet as SegtpuUNet
+from segtpu.trainer import Trainer as SegtpuTrainer
+from segtpu.utils.weight_convert import MODEL_CONVERTERS
+from segtpu_torch import losses as port_losses
+from segtpu_torch.core import mesh, spatial
+from segtpu_torch.core.steps import make_eval_step
+from segtpu_torch.models import get_model
+from segtpu_torch.ops.pooling import adaptive_avg_pool_multi
+from segtpu_torch.utils import tensorboard as tb
+from segtpu_torch.utils.weight_convert import (pspnet_state_dict_from_segtpu,
+                                               unet_state_dict_from_segtpu)
+from torch_parity import segtpu_float64, state_dict64
+from torch_zoo import TOL, TOL64, assert_step_matches, port_trajectory
+
+torch.set_num_threads(1)
+OP_TOL = 1e-12
+BN_TOL = 1e-12
+LOSS_TOL = 1e-12
+STEM_WGRAD_TOL = 1e-5
+GRAD_FLOOR = 1e-4  # as tests/test_torch_distributed.py's
+CONVERT = {"PSPNet": pspnet_state_dict_from_segtpu, "UNet": unet_state_dict_from_segtpu}
+SEG_MODELS = {"PSPNet": lambda: SegtpuPSPNet(num_classes=w.CLASSES, backbone="resnet18"),
+              "UNet": lambda: SegtpuUNet(num_classes=w.CLASSES)}
+# segtpu's spatial step takes an H that its model axis divides. At 32 its
+# UNet's spatial step on the 2 x 2 mesh is not its unsharded one (the BN
+# biases of down4 and middle_conv move by 100% of their value; the port's
+# spatial step is the unsharded one there too): UNet is held at 48, where
+# segtpu's two agree to 1e-13
+SEG_SPATIAL = [("PSPNet", 40), ("UNet", 48)]
+
+
+def rel(got, want):
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _seg_variables(name, port):
+    args = {"arch": "resnet18"} if name == "PSPNet" else {}
+    return MODEL_CONVERTERS[name]({k: v.numpy() for k, v in port.state_dict().items()},
+                                  **args)
+
+
+# -- segtpu's side, computed while the ranks run ------------------------------------
+
+def _seg_steps(name, batches, jmesh, spatial_=False, tp=False, eval_batch=None):
+    """segtpu's model after each float64 SGD step on ``jmesh``, from the
+    port's seeded weights, in the port's layout; then an eval step."""
+    params, stats = _seg_variables(name, w.spatial_model(name))
+    convert = CONVERT[name]
+    out = {}
+    with segtpu_float64():
+        params, stats = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                               (params, stats))
+        tx, _ = seg_state.make_optimizer_with_schedules(**w.SGD)
+        jstate = seg_state.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                      batch_stats=stats, opt_state=tx.init(params), tx=tx)
+        tree = None
+        if tp:
+            tree = tp_sharding_tree(jmesh, jstate)
+            jstate = shard_state(jmesh, jstate, tree)
+            out["sharded"] = jax.tree_util.tree_map(
+                lambda s: MODEL_AXIS in tuple(s.spec), tree.params)
+        jstep = seg_make_train_step(SEG_MODELS[name](), seg_losses.cross_entropy, w.CLASSES,
+                                    compute_dtype=jnp.float64, mesh=jmesh, spatial=spatial_,
+                                    state_sharding=tree)
+        snaps = [(None, state_dict64(convert, *jax.tree_util.tree_map(
+            np.asarray, (params, stats))))]
+        for imgs, labels in batches:
+            jstate, loss, _ = jstep(jstate, jnp.asarray(imgs), jnp.asarray(labels),
+                                    jax.random.PRNGKey(0))
+            p, s = jax.tree_util.tree_map(np.asarray, (jstate.params, jstate.batch_stats))
+            snaps.append((np.asarray(loss), state_dict64(convert, p, s)))
+        out["snaps"] = snaps
+        if eval_batch is not None:
+            estep = seg_make_eval_step(SEG_MODELS[name](), seg_losses.cross_entropy,
+                                       w.CLASSES, compute_dtype=jnp.float64, mesh=jmesh,
+                                       spatial=spatial_)
+            loss, stats_ = estep(jstate, *(jnp.asarray(a) for a in eval_batch))
+            out["eval"] = (float(loss), [np.asarray(t) for t in stats_])
+    return out
+
+
+class _Entries:
+    def __init__(self):
+        self.entries = []
+
+    def add_entry(self, entry):
+        self.entries.append(entry)
+
+
+def segtpu_trainer_run(root):
+    """segtpu's Trainer with the model axis keys, from the port's seeded
+    UNet: (every step's loss, its epoch logs)."""
+    cfg = w.trainer_config(root, progress_bar=False, **w.AXIS_KEYS)
+    port = get_model("UNet", device="cpu", num_classes=6)
+    params, stats = MODEL_CONVERTERS["UNet"]({k: v.numpy() for k, v in
+                                              port.state_dict().items()})
+    logs = _Entries()
+    seg = SegtpuTrainer(SegtpuUNet(num_classes=6), "CrossEntropyLoss2d", cfg,
+                        *(SegtpuSynthetic(**cfg[k]["args"])
+                          for k in ("train_loader", "val_loader")),
+                        train_logger=logs, compute_dtype=jnp.float32)
+    seg.state = seg.state.replace(
+        params=jax.device_put(jax.tree_util.tree_map(jnp.asarray, params),
+                              seg.state_sharding.params),
+        batch_stats=jax.device_put(jax.tree_util.tree_map(jnp.asarray, stats),
+                                   seg.state_sharding.batch_stats))
+    step, losses_ = seg.train_step, []
+
+    def recorded(*args):
+        out = step(*args)
+        losses_.append(float(out[1]))
+        return out
+
+    seg.train_step = recorded
+    seg.train()
+    return losses_, logs.entries
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every case's results, by case and rank, and segtpu's side."""
+    out = str(tmp_path_factory.mktemp("axis"))
+    failed = []
+
+    def launch():
+        try:
+            mesh.launch(w.run_cases, (out, list(w.CASES)), ["cpu"] * w.WORLD, timeout=600)
+        except BaseException as e:  # raised in the test below
+            failed.append(e)
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    jmesh = make_mesh(jax.devices()[:4], model_parallel=2)
+    seg = {"tp_step": _seg_steps("PSPNet", dw.step_batches(), jmesh, tp=True),
+           "trainer": segtpu_trainer_run(os.path.join(out, "segtpu"))}
+    for name, hw in SEG_SPATIAL:
+        data = w.spatial_batches(hw)
+        seg[(name, hw)] = _seg_steps(name, data[:-1], jmesh, spatial_=True,
+                                     eval_batch=data[-1])
+    thread.join(timeout=1200)
+    assert not thread.is_alive() and not failed, failed
+    got = {case: [torch.load(os.path.join(out, f"{case}-rank{r}.pt"), weights_only=False)
+                  for r in range(w.WORLD)] for case in [*w.CASES, "seconds"]}
+    yield got, seg, out
+    # the ranks' results and checkpoints take gigabytes (float64 UNet
+    # states); pytest keeps its last temp trees
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def _model_groups(results):
+    """The ranks' results by model group: [[rank 0, rank 1], [rank 2, rank 3]]."""
+    return [results[d * w.MP:(d + 1) * w.MP] for d in range(w.WORLD // w.MP)]
+
+
+# -- layout ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_layout_is_segtpus_mesh(ranks, mp):
+    grid = np.vectorize(lambda d: d.id)(make_mesh(jax.devices()[:4], model_parallel=mp)
+                                        .devices)
+    for r, res in enumerate(ranks[0]["layout"]):
+        got = res[mp]
+        (d,), (m,) = np.nonzero(grid == r)
+        assert (got["data_index"], got["model_index"]) == (d, m)
+        assert got["model_ranks"] == list(grid[d]) and got["data_ranks"] == list(grid[:, m])
+        per = 8 // (4 // mp)  # the node's batch over its data ranks
+        assert got["local_rows"] == (d * per, (d + 1) * per)
+
+
+def test_layout_raises_where_segtpu_does(ranks):
+    for res in ranks[0]["layout"]:
+        div, sp = res["errors"]
+        assert "does not divide the 4 device(s)" in div
+        assert "need a mesh with a >1 'model' axis" in sp
+        assert res["none"] == (1, None, None)
+
+
+# -- halo ops --------------------------------------------------------------------------
+
+def _full_op(x_np, fn, g_fn, params=()):
+    x = torch.from_numpy(x_np).clone().requires_grad_()
+    y = fn(x)
+    (y * torch.from_numpy(g_fn(tuple(y.shape)))).sum().backward()
+    return y.detach(), x.grad, [p.grad for p in params]
+
+
+def _assert_sharded(got_group, want, replicated=False, tol=OP_TOL, grad_tol=OP_TOL):
+    """A model group's (y, dx, param grads) against the whole op's."""
+    y, dx, grads = want
+    if replicated:
+        for g in got_group:
+            assert rel(g[0], y) < tol
+    else:
+        assert rel(torch.cat([g[0] for g in got_group], 2), y) < tol
+    assert rel(torch.cat([g[1] for g in got_group], 2), dx) < tol
+    for i, want_g in enumerate(grads):
+        assert rel(sum(g[2][i] for g in got_group), want_g) < grad_tol
+
+
+@pytest.mark.parametrize("case", list(enumerate(w.CONV_CASES)),
+                         ids=[f"k{k}-d{d}-s{s}" for k, d, s in w.CONV_CASES])
+def test_halo_conv_is_the_whole_conv(ranks, case):
+    i, (k, d, s) = case
+    x, wt, b, rng = w.op_inputs("conv", i)
+    conv = w.conv_module(k, d, s, wt, b)
+    want = _full_op(x, conv, lambda shape: rng.normal(size=shape), [conv.weight, conv.bias])
+    for group in _model_groups(ranks[0]["ops"]):
+        _assert_sharded([g[("conv", k, d, s)] for g in group], want)
+
+
+@pytest.mark.parametrize("case", list(enumerate(w.STEM_CASES)),
+                         ids=[f"{n}-k{k}" for n, k in w.STEM_CASES])
+def test_stem_conv_on_a_band_is_the_whole_conv(ranks, case):
+    """The stem kernel's conv (its plain version on the CPU: dx is zero, as
+    the kernel's) and the space-to-depth stem on each band."""
+    i, (name, k) = case
+    x, wt, _, rng = w.op_inputs("stem", i)
+    stem = w.stem_module(name, k, wt)
+    want = _full_op(x, stem, lambda shape: rng.normal(size=shape), [stem.weight])
+    # the kernel's dW sums bf16-rounded products in fp32: the bands' sums
+    # take another order
+    grad_tol = STEM_WGRAD_TOL if name == "StemConv2d" else OP_TOL
+    for group in _model_groups(ranks[0]["ops"]):
+        _assert_sharded([g[("stem", name, k)] for g in group], want, grad_tol=grad_tol)
+
+
+@pytest.mark.parametrize("case", list(enumerate(w.POOL_CASES)),
+                         ids=[f"k{k}-s{s}-p{p}-{'ceil' if c else 'floor'}"
+                              for k, s, p, c in w.POOL_CASES])
+def test_halo_max_pool_is_the_whole_pool(ranks, case):
+    i, (k, s, p, ceil) = case
+    x, _, _, rng = w.op_inputs("pool", i)
+    want = _full_op(x, lambda t: F.max_pool2d(t, k, s, p, ceil_mode=ceil),
+                    lambda shape: rng.normal(size=shape))
+    for group in _model_groups(ranks[0]["ops"]):
+        _assert_sharded([g[("pool", k, s, p, ceil)] for g in group], want)
+
+
+@pytest.mark.parametrize("case", list(enumerate(w.RESIZE_CASES)),
+                         ids=[f"{h}x{wd}-{'ac' if ac else 'half'}-{'rep' if r else 'sharded'}"
+                              for h, wd, ac, r in w.RESIZE_CASES])
+def test_resize_is_the_whole_resize(ranks, case):
+    i, (h, wd, ac, rep) = case
+    x, _, _, rng = w.op_inputs("resize", i)
+    key = ("resize", h, wd, ac, rep)
+    if rep is None:
+        want = _full_op(x, lambda t: F.interpolate(t, size=(h, wd), mode="bilinear",
+                                                   align_corners=ac),
+                        lambda shape: rng.normal(size=shape))
+        for group in _model_groups(ranks[0]["ops"]):
+            _assert_sharded([g[key] for g in group], want)
+        return
+    src = torch.from_numpy(x[:, :, :rep, :rep]).clone().requires_grad_()
+    y = F.interpolate(src, size=(h, wd), mode="bilinear", align_corners=ac)
+    (y * torch.from_numpy(rng.normal(size=(2, 3, h, wd)))).sum().backward()
+    for group in _model_groups(ranks[0]["ops"]):
+        got = [g[key] for g in group]
+        assert rel(torch.cat([g[0] for g in got], 2), y.detach()) < OP_TOL
+        # each rank's rows carry a part of the replicated source's gradient
+        assert rel(got[0][1] + got[1][1], src.grad) < OP_TOL
+
+
+def test_psp_bins_are_the_whole_images(ranks):
+    x, _, _, rng = w.op_inputs("pool_bins", 0)
+    g = rng.normal(size=(2, 3, sum(s * s for s in w.BINS), 1))
+
+    def bins(t):
+        return torch.cat([p.flatten(2) for p in adaptive_avg_pool_multi(t, w.BINS)],
+                         2).unsqueeze(-1)
+
+    want = _full_op(x, bins, lambda shape: g)
+    for group in _model_groups(ranks[0]["ops"]):
+        _assert_sharded([r["bins"] for r in group], want, replicated=True)
+
+
+@pytest.mark.parametrize("name", w.TP_CONVS)
+def test_column_parallel_conv_is_the_whole_conv(ranks, name):
+    x, g, m = w.tp_conv_inputs(name)
+    x.requires_grad_()
+    y = m(x)
+    (y * g).sum().backward()
+    for r in ranks[0]["tp_ops"]:
+        got_y, got_dx, grads = r[name]
+        assert rel(got_y, y.detach()) < OP_TOL and rel(got_dx, x.grad) < OP_TOL
+        assert rel(grads["0.weight"], m.weight.grad) < OP_TOL
+        assert rel(grads["0.bias"], m.bias.grad) < OP_TOL
+
+
+# -- collective axes -------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["tp", "spatial", "replicated"])
+def test_global_bn_counts_the_right_axis(ranks, mode):
+    x, g, *params = dw.bn_inputs(torch.float64)
+    ref = dw.make_bn(x.shape[1], params).train()
+    xr = x.clone().requires_grad_()
+    y = ref(xr)
+    (y * g).sum().backward()
+    got = [r[mode] for r in ranks[0]["bn"]]
+    for r in got:  # the unbiased running variance takes the global count
+        assert rel(r["running_mean"], ref.running_mean) < BN_TOL
+        assert rel(r["running_var"], ref.running_var) < BN_TOL
+    groups = _model_groups(got)
+    if mode == "spatial":  # rows: model index; images: data index
+        y_got = torch.cat([torch.cat([r["y"] for r in grp], 2) for grp in groups])
+        dx_got = torch.cat([torch.cat([r["dx"] for r in grp], 2) for grp in groups])
+        dweight = sum(r["dweight"] for r in got)
+    elif mode == "tp":  # the model ranks hold the same images, the whole gradient
+        y_got = torch.cat([grp[0]["y"] for grp in groups])
+        dx_got = torch.cat([grp[0]["dx"] for grp in groups])
+        for grp in groups:
+            assert torch.equal(grp[0]["dx"], grp[1]["dx"])
+        dweight = sum(grp[0]["dweight"] for grp in groups)
+    else:  # replicated maps: the model ranks carry parts of the gradient
+        y_got = torch.cat([grp[0]["y"] for grp in groups])
+        dx_got = torch.cat([grp[0]["dx"] + grp[1]["dx"] for grp in groups])
+        dweight = sum(r["dweight"] for r in got)
+    assert rel(y_got, y.detach()) < BN_TOL and rel(dx_got, xr.grad) < BN_TOL
+    assert rel(dweight, ref.weight.grad) < BN_TOL
+
+
+@pytest.mark.parametrize("case", dw.LOSS_CASES, ids=lambda c: c[0] + "".join(
+    f"-{k}={v}" for k, v in c[1].items()))
+def test_loss_under_spatial_sharding_is_the_whole_batchs(ranks, case):
+    name, kw = case
+    binary = name in dw.BINARY
+    logits, labels = w.loss_inputs(binary)
+    x = logits.clone().requires_grad_()
+    want = dw.loss_fn(name)(x, labels, ignore_index=255, **kw)
+    want.backward()
+    got = [r[(name, tuple(sorted(kw.items())))] for r in ranks[0]["losses"]]
+    for loss, _ in got:
+        assert rel(loss, want.detach()) < LOSS_TOL
+    dim = 1 if binary else 2
+    grad = torch.cat([torch.cat([g for _, g in grp], dim) for grp in _model_groups(got)])
+    assert rel(grad, x.grad) < LOSS_TOL
+
+
+# -- the TP step -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_steps", [1, w.STEP_STEPS])
+def test_tp_step_is_segtpus_on_a_2x2_mesh(ranks, n_steps):
+    got, seg, _ = ranks
+    start = dw.zoo_model("PSPNet").state_dict()
+    port = {0: (None, {k: v.double() for k, v in start.items()}),
+            **got["tp_step"][0]["snaps"]}
+    assert_step_matches(seg["tp_step"]["snaps"], port, n_steps)
+
+
+def test_tp_shards_segtpus_convs_and_keeps_the_ranks_equal(ranks):
+    got, seg, _ = ranks
+    marks = jax.tree_util.tree_map(lambda s, p: np.full(p.shape, float(s)),
+                                   seg["tp_step"]["sharded"],
+                                   _seg_variables("PSPNet", dw.zoo_model("PSPNet"))[0])
+    stats = _seg_variables("PSPNet", dw.zoo_model("PSPNet"))[1]
+    sd = pspnet_state_dict_from_segtpu(marks, stats)
+    want = {k[:-len(".weight")] for k, v in sd.items()
+            if k.endswith(".weight") and v.dim() == 4 and bool((v == 1).all())}
+    r0 = got["tp_step"][0]
+    assert set(r0["sharded"]) == want and len(want) > 0
+    for r in got["tp_step"]:
+        assert r["spread"] == [0.0] * w.STEP_STEPS
+    # the sharded weights are half a rank's parameters' bytes
+    full = sum(v.numel() * 8 for v in dw.zoo_model("PSPNet").parameters())
+    assert r0["param_bytes"] < 0.75 * full
+
+
+@pytest.mark.parametrize("name", list(dw.ZOO))
+def test_zoo_model_steps_under_tp_as_on_one_process(ranks, name):
+    got = [r[name] for r in ranks[0]["zoo"]]
+    ref = got[list(dw.ZOO).index(name) % w.WORLD]
+    assert all(g["loss"] == got[0]["loss"] for g in got)
+    assert all(g["n_sharded"] > 0 for g in got)
+    assert abs(got[0]["loss"] - ref["ref_loss"]) <= TOL64 * abs(ref["ref_loss"])
+    assert ref["n_grads"] == ref["ref_n_grads"]
+    floor = GRAD_FLOOR * ref["model_scale"]
+    for param, (err, scale) in ref["errors"].items():
+        assert err < TOL64 * max(scale, floor), (param, err, scale)
+
+
+# -- spatial steps ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_process():
+    """The port as one process on each spatial case's whole batches: the
+    trajectory, then the eval step's loss and stats after it."""
+    out = {}
+    for name, hw in w.SPATIAL_CASES:
+        data = w.spatial_batches(hw)
+        snaps = port_trajectory(w.spatial_model(name), data[:-1])
+        model = w.spatial_model(name)
+        model.load_state_dict(snaps[-1][1])
+        loss, stats, _ = make_eval_step(port_losses.cross_entropy,
+                                        compute_dtype=torch.float64)(
+            model, *(torch.from_numpy(a) for a in data[-1]))
+        out[(name, hw)] = snaps, (float(loss), stats)
+    return out
+
+
+def _spatial(ranks, name, hw):
+    return [r[(name, hw)] for r in ranks[0]["spatial"]]
+
+
+@pytest.mark.parametrize("case", w.SPATIAL_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_spatial_steps_are_one_process(ranks, one_process, case):
+    got = _spatial(ranks, *case)
+    ref, (eval_loss, eval_stats) = one_process[case]
+    snaps = got[0]["snaps"]
+    for n in (1, w.SPATIAL_STEPS):
+        loss, sd = snaps[n]
+        assert rel(loss, ref[n][0]) < TOL64
+        for k, v in ref[n][1].items():
+            if v.is_floating_point():
+                scale = max(float(v.abs().max()), 1e-12)
+                assert float((sd[k] - v).abs().max()) < TOL64 * scale, k
+            else:
+                assert torch.equal(sd[k], v), k
+    for r in got:
+        assert r["spread"] == [0.0] * w.SPATIAL_STEPS
+        loss, stats = r["eval"]
+        assert abs(loss - eval_loss) <= TOL64 * abs(eval_loss)
+        for g, wv in zip(stats, eval_stats):
+            assert torch.equal(g, wv)
+
+
+@pytest.mark.parametrize("case", w.SPATIAL_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_spatial_ranks_hold_their_bands(ranks, case):
+    name, hw = case
+    got = _spatial(ranks, name, hw)
+    rows = got[0]["rows"]
+    stride = get_model(name, device="cpu", num_classes=3, **(
+        {"backbone": "resnet18"} if name == "PSPNet" else {})).spatial_stride
+    assert rows == spatial.split(hw, stride, 2)
+    assert rows.bounds[0][1] % stride == 0 and rows.bounds[1][1] == hw
+    first = rows.bounds[0][1] // stride  # rank 0's rows of the smallest map
+    deep = (first, -(-hw // stride) - first)
+    for r, res in enumerate(got):
+        lo, hi = rows.bounds[r % 2]
+        assert res["heights"] == (deep[r % 2], hi - lo) and deep[r % 2] > 0
+
+
+@pytest.mark.parametrize("n_steps", [1, w.SPATIAL_STEPS])
+@pytest.mark.parametrize("case", SEG_SPATIAL, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_spatial_step_is_segtpus_on_a_2x2_mesh(ranks, case, n_steps):
+    got, seg, _ = ranks
+    snaps = _spatial(ranks, *case)[0]["snaps"]
+    start = w.spatial_model(case[0]).state_dict()
+    port = {0: (None, {k: v.double() for k, v in start.items()}), **snaps}
+    assert_step_matches(seg[case]["snaps"], port, n_steps)
+
+
+@pytest.mark.parametrize("case", SEG_SPATIAL, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_spatial_eval_is_segtpus(ranks, case):
+    got, seg, _ = ranks
+    want_loss, want_stats = seg[case]["eval"]
+    for r in _spatial(ranks, *case):
+        loss, stats = r["eval"]
+        assert abs(loss - want_loss) <= TOL * abs(want_loss)
+        for g, wv in zip(stats, want_stats):
+            np.testing.assert_array_equal(g.numpy(), wv)
+
+
+# -- the Trainer -----------------------------------------------------------------------
+
+def test_trainer_with_the_model_axis_is_segtpus(ranks):
+    got, seg, _ = ranks
+    seg_losses_, seg_logs = seg["trainer"]
+    for r, res in enumerate(got["trainer"]):
+        assert res["sharded"] > 0 and res["rows"] == spatial.split(64, 16, 2)
+        steps = res["step_losses"]
+        assert len(steps) == len(seg_losses_) == 3
+        for g, wv in zip(steps, seg_losses_):
+            assert abs(g - wv) <= TOL * abs(wv)
+        (h,), (wl,) = res["history"], seg_logs
+        for k in ("val_loss", "Pixel_Accuracy", "Mean_IoU"):
+            assert abs(h[k] - wl[k]) <= 1e-3 + 1e-7, k
+        assert res["history"] == got["trainer"][0]["history"]
+        assert res["final_spread"] == 0.0
+    # the big convs' weights are sharded: half their output channels a rank
+    shapes = got["trainer"][0]["param_shapes"]
+    assert shapes["middle_conv.3.weight"] == (512, 512, 3, 3)
+
+
+def test_model_axis_checkpoint_resumes_on_one_and_on_four(ranks):
+    got, _, out = ranks
+    r0 = got["trainer"][0]
+    ckpt = os.path.join(r0["checkpoint_dir"], "checkpoint-epoch1")
+    cfg = w.trainer_config(os.path.join(out, "one-rank"))
+    one = w.state_of(w.port_trainer(cfg, resume=ckpt))
+    final = r0["final"]
+    for state in (one, *(r["resumed"] for r in got["trainer"])):
+        assert state["step"] == final["step"] == 3
+        for k, v in final["model"].items():
+            assert torch.equal(state["model"][k], v), k
+        assert state["optimizer"]["param_groups"] == final["optimizer"]["param_groups"]
+        for i, buffers in final["optimizer"]["state"].items():
+            for k, v in buffers.items():
+                assert torch.equal(state["optimizer"]["state"][i][k], v), (i, k)
+    assert r0["resumed_epoch"] == 2
+    # the checkpoint holds the one-device layout
+    saved = torch.load(os.path.join(ckpt, "state.pt"), weights_only=True)
+    assert tuple(saved["model"]["middle_conv.3.weight"].shape) == (1024, 512, 3, 3)
+
+
+def test_val_grid_shows_whole_images(ranks):
+    _, _, out = ranks
+    (path,) = glob.glob(os.path.join(out, "trainer", "runs", "*", "*", "events.out.*"))
+    images = [v["image"] for e in tb.read_events(path) for v in e["values"]
+              if v.get("tag") == "val/inputs_targets_predictions"]
+    assert len(images) == 1
+    assert (images[0]["height"], images[0]["width"]) == (64, 3 * 64)
+
+
+def test_spatial_raises_for_the_other_models():
+    with pytest.raises(ValueError, match="ROADMAP"):
+        spatial.check_model(get_model("ENet", device="cpu", num_classes=3))
+    with pytest.raises(ValueError, match="some rank would hold none"):
+        spatial.split(15, 16, 2)

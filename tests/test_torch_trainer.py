@@ -100,8 +100,11 @@ def _cpu_trainer(cfg):
                                   {"model_parallel": 4, "spatial": True}])
 def test_trainer_raises_on_a_model_axis(keys):
     """segtpu raises when ``model_parallel`` or ``spatial`` asks for a model
-    axis its mesh lacks; the port's devices form a data axis alone."""
-    with pytest.raises(ValueError, match="form the data axis alone: it has no model axis"):
+    axis its mesh lacks: here one device, which no model axis of 2 or more
+    divides, and on which ``spatial`` has no model axis to split H over
+    (the model axis itself: ``tests/test_torch_model_axis.py``)."""
+    with pytest.raises(ValueError, match=r"does not divide the 1 device\(s\)|need a mesh "
+                                         r"with a >1 'model' axis"):
         _cpu_trainer(_config(**keys))
 
 
@@ -120,13 +123,15 @@ def _warnings(cfg):
 
 
 def test_trainer_warns_on_remat_and_device_keys(tmp_path):
-    """``remat`` is ignored with a warning; ``devices`` and ``device_ids``
-    are honoured (``test_trainer_honours_the_device_keys``), so they warn no
-    more; ``model_parallel: 1`` and ``spatial: false`` are accepted."""
-    _, msgs = _warnings(_config(remat=True, devices=1, device_ids="0", model_parallel=1,
-                                spatial=False, save_dir=str(tmp_path),
-                                log_dir=str(tmp_path / "runs")))
-    assert msgs == ["trainer.remat is not ported yet (ROADMAP); ignored"]
+    """``remat`` is honoured (``tests/test_torch_remat.py``), and so are
+    ``devices`` and ``device_ids`` (``test_trainer_honours_the_device_keys``):
+    none of them warns; ``model_parallel: 1`` and ``spatial: false`` are
+    accepted."""
+    trainer, msgs = _warnings(_config(remat=True, devices=1, device_ids="0",
+                                      model_parallel=1, spatial=False,
+                                      save_dir=str(tmp_path),
+                                      log_dir=str(tmp_path / "runs")))
+    assert msgs == [] and trainer.remat
 
 
 @pytest.mark.parametrize("keys", [{"devices": 1}, {"device_ids": "0"},
