@@ -6,7 +6,11 @@
 Phases, each announced on its own line:
 
 1. device: the card's name and power limit (nvidia-smi), versions, TF32 off,
-   whether the card's Python imports tensorboardX and tensorboard;
+   whether the card's Python imports tensorboardX, tensorboard and tqdm;
+   where tqdm imports, one short PSPNet-R50 run through
+   ``segtpu_torch.train.main`` with ``trainer.progress_bar`` on, whose bar
+   text (``epoch 1 | loss ... | B ... D ...``) must reach stderr (every
+   other run here sets ``progress_bar: false``);
 2. build: every hand-written kernel from the sources in the checkout, one
    nvcc each, all started together;
 3. kernel against plain: each kernel's wrapper on the card, at the main
@@ -136,8 +140,9 @@ Phases, each announced on its own line:
     the counts set to 0 just before and read just after), D and B from the
     epoch log and per step; the train step on one device-resident batch,
     then 5 timed and 3 traced steps fed by the prefetcher from the disk
-    loader; the repo's ``config.json`` (only data_dir, save_dir and epochs
-    set) trained for 5 steps and its validation on a view of the tree; the
+    loader; the repo's ``config.json`` (only data_dir, save_dir, epochs and
+    progress_bar set) trained for 5 steps and its validation on a view of
+    the tree; the
     inference CLI, sliding bf16, on one frame with the 769 run's best_model;
     every run writes its tensorboard events into the work directory;
 17. pretrained encoders: a seeded encoding-style resnet50s.pth in the work
@@ -203,7 +208,17 @@ Phases, each announced on its own line:
     path's and its step times beside them; ``remat_backbone`` and
     ``s2d_stem`` (without the stem kernel, which wins over it) for
     MA_KNOB_STEPS steps beside one process's; each with the steps' peak
-    above the memory held before them;
+    above the memory held before them. (d) In the launcher call of (a) and
+    (b), on the same two ranks: the rest of the zoo that ``trainer.spatial``
+    shards (MA_ZOO: UperNet-R101, PSPDenseNet-201 with ``remat_backbone``,
+    DeepLabV3+-Xception and -R101, DeepLab_DUC_HDC-R101, SegNet,
+    SegResNet), spatial only (no tensor-parallel convs), full width and
+    depth, 769², batch 8, bf16, CE, one warm-up and MA_ZOO_STEPS - 1 timed
+    steps each: each rank's rows, its ms/step, the steps' peak above the
+    memory held before them beside one process's on the same model and
+    batch (below it), the first loss against the one process's bf16 step
+    from the same weights on the same batch (DP_LOSS_TOL), the later losses
+    finite, no stem launch;
 20. the script's time, the ``kernels`` JSON line (each kernel's launches on
     every path above), then the card's name and power limit, then
     ``{"ok": true, "device": {...}}`` as the last line.
@@ -318,6 +333,26 @@ DP_NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 MA_STEPS = 2
 MA_TRAINER_STEPS = 3
 MA_KNOB_STEPS = 3
+# the model axis phase's spatial zoo: the models trainer.spatial shards
+# besides PSPNet and UNet, at segtpu's defaults (PSPDenseNet with
+# remat_backbone: without it one process needs 36.6 GiB), spatial only, one
+# warm-up and MA_ZOO_STEPS - 1 timed steps on each of the two ranks
+MA_ZOO = [
+    ("UperNet-R101", {"type": "UperNet", "args": {"backbone": "resnet101"}}),
+    ("PSPDenseNet-201 remat_backbone", {"type": "PSPDenseNet", "args": {
+        "backbone": "densenet201", "remat_backbone": True}}),
+    ("DeepLabV3+-Xception", {"type": "DeepLab", "args": {"backbone": "xception",
+                                                         "output_stride": 16}}),
+    ("DeepLabV3+-R101", {"type": "DeepLab", "args": {"backbone": "resnet101",
+                                                     "output_stride": 16}}),
+    ("DeepLab_DUC_HDC-R101", {"type": "DeepLab_DUC_HDC", "args": {
+        "backbone": "resnet101", "output_stride": 8}}),
+    ("SegNet", {"type": "SegNet", "args": {}}),
+    ("SegResNet", {"type": "SegResNet", "args": {}}),
+]
+MA_ZOO_STEPS = 3
+# the progress bar's text at a log_per_iter, as segtpu sets it
+BAR_TEXT = r"epoch 1 \| loss \d+\.\d{3} \| B \d+\.\d{2} D \d+\.\d{2}"
 # kernel-name substrings -> category of the traced step, first match wins
 CATEGORIES = [
     ("stem_wgrad", "stem weight gradient (segtpu_torch CUDA kernel)"),
@@ -444,12 +479,47 @@ def smoke_config(arch, save_dir, save_period=10, save_per_iters=0, steps=STEPS,
                       "args": {"lr": 0.01, "weight_decay": 1e-4, "momentum": 0.9}},
         "loss": "CrossEntropyLoss2d", "ignore_index": 255,
         "lr_scheduler": {"type": "Poly", "args": {}},
-        "trainer": {"epochs": 1, "log_per_iter": 1, "val": val,
+        "trainer": {"epochs": 1, "log_per_iter": 1, "val": val, "progress_bar": False,
                     "monitor": "max Mean_IoU", "compute_dtype": "bfloat16",
                     "save_dir": save_dir, "save_period": save_period,
                     "save_per_iters": save_per_iters,
                     "log_dir": os.path.join(os.path.dirname(save_dir), "runs")},
     }
+
+
+def progress_bar_run(workdir, card):
+    """One short run through ``segtpu_torch.train.main`` with
+    ``trainer.progress_bar`` on (PSPNet-R50 without the stem kernel, 2
+    steps, no validation): the bar's text, set at each ``log_per_iter``,
+    must reach stderr."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from segtpu_torch import train as train_cli
+    from segtpu_torch.utils.logger import setup_logging
+
+    config = smoke_config({"type": "PSPNet", "args": {"backbone": "resnet50"}},
+                          os.path.join(workdir, "bar", "saved"), steps=2, val=False)
+    config["trainer"].update(progress_bar=True, tensorboard=False)
+    setup_logging()  # its handler keeps the real stderr: only the bar is caught
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        trainer = train_cli.main(config, "cuda")
+    seconds = time.perf_counter() - t0
+    text = err.getvalue()
+    bars = re.findall(BAR_TEXT + r"[^\r\n]*", text)
+    print(f"trainer.progress_bar on, PSPNet-R50 {trainer.state.step} steps through "
+          f"segtpu_torch.train.main in {seconds:.1f} s: the bar's last text "
+          f"{bars[-1] if bars else None!r} [{card}]", flush=True)
+    check(bool(bars) and trainer.state.step == 2,
+          f"trainer.progress_bar: no bar text on stderr ({text[-500:]!r})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def device_us(evt) -> float:
@@ -1580,9 +1650,10 @@ def disk_phase(workdir, seed, card, recorder):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the repo's config.json: only data_dir, save_dir and epochs set; the
-    # data_dir is a view of the tree with BATCH train frames (one step an
-    # epoch), and 5 epochs reach its first validation (val_per_epochs 5)
+    # the repo's config.json: only data_dir, save_dir, epochs and (as in
+    # every run here but the device phase's) progress_bar set; the data_dir
+    # is a view of the tree with BATCH train frames (one step an epoch), and
+    # 5 epochs reach its first validation (val_per_epochs 5)
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "config.json")) as f:
         user = json.load(f)
@@ -1600,6 +1671,7 @@ def disk_phase(workdir, seed, card, recorder):
     user["trainer"]["save_dir"] = os.path.join(workdir, "saved_user")
     user["trainer"]["log_dir"] = os.path.join(workdir, "runs_user")
     user["trainer"]["epochs"] = 5
+    user["trainer"]["progress_bar"] = False
     reset_launches()
     t0 = time.perf_counter()
     trainer = train_cli.main(user, "cuda")
@@ -1989,7 +2061,6 @@ def segresnet_checks(trainer, batch, val_batch, card):
     import torch
 
     from segtpu_torch.core.steps import prep_images
-    from segtpu_torch.models import segnet
     from segtpu_torch.ops.pooling import max_unpool_flat
 
     model = trainer.model
@@ -2009,11 +2080,11 @@ def segresnet_checks(trainer, batch, val_batch, card):
         return max_unpool_flat(y, idx, output_hw)
 
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    segnet.max_unpool_flat = keep_unpool_inputs
+    model._unpool_flat = keep_unpool_inputs  # the model calls it through the attribute
     try:
         step_backward(trainer, model, state, *batch, torch.bfloat16)
     finally:
-        segnet.max_unpool_flat = max_unpool_flat
+        del model._unpool_flat
     model.zero_grad(set_to_none=True)
     y, idx, hw = seen["y"], seen["idx"], seen["hw"]
     g = torch.randn((*y.shape[:2], *hw), device="cuda",
@@ -2753,8 +2824,120 @@ def ma_rank(device, workdir):
             gc.collect()
             torch.cuda.empty_cache()
         res[mode] = got
+    res["zoo"] = ma_zoo_rank(device)
     with open(os.path.join(workdir, f"ma-rank{mesh.rank()}.json"), "w") as f:
         json.dump(res, f)
+
+
+def ma_zoo_rank(device):
+    """This rank's side of the spatial zoo (MA_ZOO): each model spatial
+    only (its halo classes, GlobalBatchNorm2d, no tensor-parallel conv) on
+    its band of the first MA_ZOO_STEPS batches; returns its numbers by
+    label."""
+    import torch
+
+    from segtpu_torch.core import mesh, spatial
+    from segtpu_torch.nn.layers import convert_global_bn
+
+    mesh.set_model_axis(2, spatial=True)
+    batches = dp_batches(device)[:MA_ZOO_STEPS]
+    out = {}
+    for label, arch in MA_ZOO:
+        model = ma_zoo_model(arch, device)
+        convert_global_bn(model)
+        swapped = spatial.shard_windows(model)
+        stride = spatial.check_model(model)
+        rows = spatial.split(CROP, stride, 2)
+        losses, ms, launches, held, peak, _ = ma_steps(model, batches, torch.bfloat16,
+                                                       rows, model_axis=True)
+        out[label] = {"stride": stride, "rows": list(rows.mine), "swapped": swapped,
+                      "losses": losses, "ms": ms, "stem_launches": launches,
+                      "held": held, "peak": peak}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ma_zoo_reference(dev, card):
+    """The spatial zoo's one-process steps (MA_ZOO): 2 steps of each model
+    on the whole batch, the first loss and the second step's peak above
+    the memory held before it."""
+    import torch
+
+    gib = 2.0 ** 30
+    out = {}
+    for label, arch in MA_ZOO:
+        model = ma_zoo_model(arch, dev)
+        losses, ms, stem, held, peak, _ = ma_steps(model, dp_batches(dev)[:2], torch.bfloat16)
+        out[label] = {"losses": losses, "ms": ms, "held": held, "peak": peak,
+                      "stem_launches": stem}
+        print(f"one process, {label}, batch 8: losses {losses}, ms/step {ms}; held "
+              f"{held / gib:.2f} GiB, the second step's peak above it {peak / gib:.2f} GiB; "
+              f"stem launches {stem} [{card}]", flush=True)
+        check(all(math.isfinite(x) for x in losses), f"one process {label}: losses {losses}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_ma_zoo(ranks, zoo_ref, card, launches):
+    """The spatial zoo's ranks (``ranks[r]["zoo"]``) against one process
+    (``zoo_ref``): rows, the first loss within DP_LOSS_TOL, finite losses
+    equal on the ranks, the peak below one process's, no stem launch (each
+    rank's count recorded in ``launches``). Returns the numbers."""
+    from segtpu_torch.core import spatial
+
+    gib = 2.0 ** 30
+    numbers = {}
+    for label, _ in MA_ZOO:
+        ref_z = zoo_ref[label]
+        for rk in ranks:
+            g = rk["zoo"][label]
+            timed = g["ms"][1:]
+            err = abs(g["losses"][0] - ref_z["losses"][0]) / abs(ref_z["losses"][0])
+            print(f"spatial {label}, rank {rk['rank']} over gloo: rows {g['rows']} (stride "
+                  f"{g['stride']}), {g['swapped']} modules in their halo classes; losses "
+                  f"{g['losses']}, the first against one process's {ref_z['losses'][0]:.6f}: "
+                  f"rel err {err:.3e} (tol {DP_LOSS_TOL}); ms/step {g['ms']} (timed mean "
+                  f"{sum(timed) / len(timed):.1f}; one process {ref_z['ms'][-1]:.1f}; gloo on "
+                  f"one card, no target); the steps' peak above the held "
+                  f"{g['peak'] / gib:.2f} GiB (one process {ref_z['peak'] / gib:.2f}; held "
+                  f"{g['held'] / gib:.2f} and {ref_z['held'] / gib:.2f}); stem launches "
+                  f"{g['stem_launches']} [{card}]", flush=True)
+            check(err < DP_LOSS_TOL, f"spatial {label}: the first loss off by {err}")
+            check(all(math.isfinite(x) for x in g["losses"]),
+                  f"spatial {label}: losses {g['losses']}")
+            check(g["losses"] == ranks[0]["zoo"][label]["losses"],
+                  f"spatial {label}: the ranks' losses differ")
+            check(g["peak"] < ref_z["peak"], f"spatial {label}: rank {rk['rank']}'s peak "
+                  f"{g['peak']} against one process's {ref_z['peak']}")
+            check(g["stem_launches"] == 0, f"spatial {label}: stem launches "
+                  f"{g['stem_launches']}")
+            launches[f"spatial {label}, rank {rk['rank']}, {MA_ZOO_STEPS} steps"] = (
+                g["stem_launches"])
+        stride = ranks[0]["zoo"][label]["stride"]
+        want = [list(b) for b in spatial.split(CROP, stride, 2).bounds]
+        check([rk["zoo"][label]["rows"] for rk in ranks] == want,
+              f"spatial {label}: rows {[rk['zoo'][label]['rows'] for rk in ranks]}")
+        numbers[label] = {"one_process": ref_z, "ranks": [rk["zoo"][label] for rk in ranks]}
+    return numbers
+
+
+def ma_zoo_model(arch, device):
+    """A model of MA_ZOO from DP_SEED, dropout 0 (the ranks and one process
+    would draw other masks)."""
+    import torch
+
+    from segtpu_torch.models import get_model
+
+    model = get_model(arch["type"], device=device, seed=DP_SEED, num_classes=CLASSES,
+                      **arch["args"])
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.p = 0.0
+    return model
 
 
 def ma_pretrained_root(workdir):
@@ -3014,6 +3197,7 @@ def model_axis_phase(workdir, card, recorder, main_steps):
     gc.collect()
     torch.cuda.empty_cache()
     gib = 2.0 ** 30
+    zoo_ref = ma_zoo_reference(dev, card)
     print(f"one process, batch 8: losses {ref_losses}, ms/step {ref_ms}; parameters "
           f"{ref_params / gib:.3f} GiB, optimizer {ref_opt / gib:.3f} GiB; held "
           f"{ref_held / gib:.2f} GiB, the steps' peak above it {ref_peak / gib:.2f} GiB; "
@@ -3101,6 +3285,7 @@ def model_axis_phase(workdir, card, recorder, main_steps):
     check([rk["spatial"]["rows"] for rk in ranks] == [[0, 392], [392, 769]]
           and [rk["spatial"]["layer4_rows"] for rk in ranks] == [49, 48],
           "spatial: the bands are not 392 / 377 rows (49 / 48 at layer4)")
+    numbers["zoo"] = check_ma_zoo(ranks, zoo_ref, card, launches)
     del ref, control, start
     gc.collect()
     torch.cuda.empty_cache()
@@ -3228,11 +3413,20 @@ def run(args, workdir, t_start):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32: matmul.allow_tf32=False, cudnn.allow_tf32=False")
-    for module in ("tensorboardX", "tensorboard"):  # the port writes events without either
+    imports = {}
+    # the port writes events without either tensorboard package; tqdm draws
+    # trainer.progress_bar
+    for module in ("tensorboardX", "tensorboard", "tqdm"):
         found = subprocess.run([sys.executable, "-c", f"import {module}"], capture_output=True,
                                text=True, timeout=120)
+        imports[module] = found.returncode == 0
         print(f"python3 -c 'import {module}': exit {found.returncode} "
               f"{(found.stderr.strip().splitlines() or [''])[-1]}")
+    if imports["tqdm"]:
+        progress_bar_run(workdir, card)
+    else:
+        print("tqdm does not import: no run with trainer.progress_bar on (a run with it "
+              "on raises ImportError, as segtpu's)")
 
     phase("build")
     t0 = time.perf_counter()

@@ -246,9 +246,12 @@ class ResNetFeatures(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         self.out_channels = in_planes
 
+    #: the stem pool, which core/spatial.py's shard_windows swaps per instance
+    _max_pool = staticmethod(max_pool)
+
     @property
     def layers(self):
         return [self.layer1, self.layer2, self.layer3, self.layer4]
 
     def forward(self, x):
-        return run_features(self.initial, self.layers, x)
+        return run_features(self.initial, self.layers, x, self._max_pool)

@@ -54,13 +54,13 @@ class VGG16Features(nn.Sequential):
         super().__init__(*layers)
 
 
-def run_with_indices(stages, x) -> Tuple[torch.Tensor, List]:
-    """Each stage, then :func:`max_pool_argmax`; returns ``(bottom,
-    [(indices, pre-pool size), ...])``."""
+def run_with_indices(stages, x, pool=max_pool_argmax) -> Tuple[torch.Tensor, List]:
+    """Each stage, then ``pool`` (:func:`max_pool_argmax`); returns
+    ``(bottom, [(indices, pre-pool size), ...])``."""
     saved = []
     for stage in stages:
         x = stage(x)
         size = x.shape[-2:]
-        x, idx = max_pool_argmax(x)
+        x, idx = pool(x)
         saved.append((idx, size))
     return x, saved

@@ -281,7 +281,7 @@ class _GlobalSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
+        out = _dense(x)
         dist.all_reduce(out, group=group)
         return out
 
@@ -299,15 +299,23 @@ class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone()
+        out = _dense(x)
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        out = grad.clone()
+        out = _dense(grad)
         dist.all_reduce(out, group=ctx.group)
         return out, None
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """A row-major copy of ``x`` for an all-reduce: the collective sums the
+    ranks' storage element by element, so a term whose strides differ
+    between ranks (an einsum's output, a channels-last map) would be summed
+    out of place."""
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -7,22 +7,31 @@ holds a band of rows of the same images, and every op whose window
 crosses H is written out:
 
 * :func:`split` puts the band boundaries at multiples of the model's total
-  stride (``spatial_stride``: 8 for PSPNet, 16 for UNet), so every strided
-  window and every ceil-mode pool starts on a boundary; the smallest map's
-  rows are shared as evenly as they go, the first ranks taking the extra
-  row, and the last rank takes the remainder of the input. PSPNet at 769
-  over 2 ranks: 392/377 input rows, 196/189 after the stem, 98/95 after
-  the pool, 49/48 in the feature map.
+  stride (``spatial_stride``: 8 for PSPNet, PSPDenseNet and
+  DeepLab_DUC_HDC, 16 for UNet, ``output_stride`` for UperNet and DeepLab,
+  32 for SegNet and SegResNet), so every strided window and every
+  ceil-mode pool starts on a boundary; the smallest map's rows are shared
+  as evenly as they go, the first ranks taking the extra row, and the last
+  rank takes the remainder of the input. PSPNet at 769 over 2 ranks:
+  392/377 input rows, 196/189 after the stem, 98/95 after the pool, 49/48
+  in the feature map.
 * Convs and pools with a window over H (:class:`HaloConv2d`,
-  :func:`max_pool`, :class:`HaloStemConv2d`) receive the rows they read
-  from the ranks that own them (:func:`fetch_rows`); zero (or, for a max
-  pool, -inf) padding applies only at the image's global top and bottom.
-  The backward returns each halo row's gradient to its owner.
+  :func:`max_pool`, :func:`avg_pool`, :class:`HaloStemConv2d`, SegResNet's
+  :func:`max_pool_argmax_flat`) receive the rows they read from the ranks
+  that own them (:func:`fetch_rows`); zero (or, for a max pool, -inf)
+  padding applies only at the image's global top and bottom. The backward
+  returns each halo row's gradient to its owner.
 * :func:`resize_bilinear` works from the global source and target sizes,
   each rank computing its own output rows from its source rows and a
   halo (or from a replicated source); :func:`adaptive_avg_pool_multi`
   sums each bin's partial sums over the model group, so its bins are
-  replicated on the model ranks.
+  replicated on the model ranks, as is ASPP's :func:`image_mean`.
+* :func:`crop` cuts global rows into a registered layout (the model's
+  offsets from :func:`global_hw`), and :func:`pixel_shuffle` multiplies
+  each band's rows; SegNet's argmax pools and unpools
+  (:func:`max_pool_argmax`, :func:`max_unpool`) keep to their bands, and
+  SegResNet's :func:`max_unpool_flat` sends each write to the rank that
+  owns its canvas row.
 
 Every exchange is an all-reduce of a buffer that is zero outside what each
 rank contributes (gloo carries all-reduces of CUDA tensors; it is the
@@ -35,11 +44,12 @@ not sharded: the input's from the step, every other from the op that made
 it. An op that meets a map with no layout raises.
 
 :func:`shard_windows` puts these forms into a model, in place: each conv
-takes its halo class (same parameters and keys), and each module that
-calls a pool or resize over H through an attribute (``_max_pool``,
-``_resize``, ``_pool_bins``: PSPNet, its PSP module, UNet's encoders and
-decoders) gets this module's function there. ``ops/`` keeps one path, and
-each form here runs the plain op outside a sharded forward.
+and each pool module takes its halo class (same parameters and keys), and
+each module that calls an op over H through an attribute (``HALO_OPS``:
+``_max_pool``, ``_resize``, ``_pool_bins``, ``_image_pool``, ``_shuffle``,
+``_crop``, ``_hw``, ``_pool_argmax``, ``_unpool``, ``_pool_argmax_flat``,
+``_unpool_flat``) gets this module's function there. ``ops/`` keeps one
+path, and each form here runs the plain op outside a sharded forward.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from torch import nn
 from segtpu_torch.core import mesh
 from segtpu_torch.ops import pooling
 from segtpu_torch.ops import resize as plain_resize
+from segtpu_torch.ops import shape as plain_shape
 from segtpu_torch.ops.conv_wgrad import StemConv, StemConv2d
 from segtpu_torch.ops.s2d import S2DStemConv2d, s2d_stem_conv
 
@@ -256,18 +267,26 @@ def _window_rows(rows: Rows, k_eff: int, s: int, p: int, out_size: int):
     return Rows(tuple(bounds), out_size), need
 
 
-def window_input(x: torch.Tensor, k: int, s: int, p: int, d: int = 1,
-                 ceil_mode: bool = False):
+def window_layout(rows: Rows, k: int, s: int, p: int, d: int = 1,
+                  ceil_mode: bool = False):
     """For a window of ``k`` taps (dilation ``d``), stride ``s`` and padding
-    ``p`` over H: ``(ext, top, bottom, out_rows)``, the rows this rank's
-    output rows read (:func:`fetch_rows`) and the output's layout."""
-    rows = rows_of(x)
+    ``p`` over a map of layout ``rows``: the output's layout and the input
+    rows each rank's output rows read."""
     k_eff = d * (k - 1) + 1
     span = rows.size + 2 * p - k_eff
     out = (-(-span // s) if ceil_mode else span // s) + 1
     if ceil_mode and (out - 1) * s >= rows.size + p:
         out -= 1
-    out_rows, need = _window_rows(rows, k_eff, s, p, out)
+    return _window_rows(rows, k_eff, s, p, out)
+
+
+def window_input(x: torch.Tensor, k: int, s: int, p: int, d: int = 1,
+                 ceil_mode: bool = False):
+    """:func:`window_layout` of ``x``'s layout: ``(ext, top, bottom,
+    out_rows)``, the rows this rank's output rows read (:func:`fetch_rows`)
+    and the output's layout."""
+    rows = rows_of(x)
+    out_rows, need = window_layout(rows, k, s, p, d, ceil_mode)
     ext, top, bottom = fetch_rows(x, rows, need)
     return ext, top, bottom, out_rows
 
@@ -371,6 +390,227 @@ def max_pool(x: torch.Tensor, window, stride=None, padding=0,
     y = F.max_pool2d(_pad_rows(ext, top, bottom, -torch.inf), (kh, kw), (sh, sw),
                      (0, pw), ceil_mode=ceil_mode)
     register(y, out_rows)
+    return y
+
+
+class HaloMaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` (its class swapped in place) over a sharded map
+    (:func:`max_pool`): DenseNet's stem pools."""
+
+    def forward(self, x):
+        if not active():
+            return super().forward(x)
+        if self.return_indices or self.dilation not in (1, (1, 1)):
+            raise NotImplementedError("spatial: a module max pool with indices or "
+                                      "dilation is not sharded over H")
+        return max_pool(x, self.kernel_size, self.stride, self.padding, self.ceil_mode)
+
+
+def avg_pool(x: torch.Tensor, window, stride=None, padding=0, ceil_mode: bool = False,
+             count_include_pad: bool = True, divisor_override=None) -> torch.Tensor:
+    """``F.avg_pool2d`` over a sharded map, for windows without padding over
+    H (DenseNet's transition pool), registering the output's layout."""
+    kh, kw = _pair(window)
+    sh, sw = _pair(stride or (kh, kw))
+    ph, pw = _pair(padding)
+    if ph:
+        raise NotImplementedError(f"spatial: an average pool padded by {ph} rows is not "
+                                  f"sharded over H")
+    ext, _, _, out_rows = window_input(x, kh, sh, 0, 1, ceil_mode)
+    y = F.avg_pool2d(ext, (kh, kw), (sh, sw), (0, pw), ceil_mode, count_include_pad,
+                     divisor_override)
+    register(y, out_rows)
+    return y
+
+
+class HaloAvgPool2d(nn.AvgPool2d):
+    """``nn.AvgPool2d`` (its class swapped in place) over a sharded map
+    (:func:`avg_pool`)."""
+
+    def forward(self, x):
+        if not active():
+            return super().forward(x)
+        return avg_pool(x, self.kernel_size, self.stride, self.padding, self.ceil_mode,
+                        self.count_include_pad, self.divisor_override)
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def max_pool_argmax(x: torch.Tensor):
+    """SegNet's 2x2/2 ceil-mode argmax pool over a sharded map. The band
+    boundaries lie on even rows (the model's stride), so no window crosses
+    one and each band pools its own rows; the indices stay local to the
+    band (flat positions in the band's plane), which is what
+    :func:`max_unpool` on the same band reads. The last band keeps the
+    ceil-mode partial window."""
+    if not active():
+        return pooling.max_pool_argmax(x)
+    rows = rows_of(x)
+    out_rows, need = window_layout(rows, 2, 2, 0, 1, ceil_mode=True)
+    (lo, hi), (a, b) = rows.mine, need[mesh.model_index()]
+    if a != lo or min(b, rows.size) != hi:
+        raise RuntimeError(f"spatial: a 2x2/2 pool over rows [{lo}, {hi}) reads "
+                           f"[{a}, {b})")
+    y, idx = F.max_pool2d(x, 2, 2, ceil_mode=True, return_indices=True)
+    register(y, out_rows)
+    return y, idx
+
+
+def max_unpool(y: torch.Tensor, idx: torch.Tensor, output_size) -> torch.Tensor:
+    """:func:`max_pool_argmax`'s inverse on each band: ``output_size`` is
+    the band's pre-pool size, whose layout is registered."""
+    if not active():
+        return pooling.max_unpool(y, idx, output_size)
+    rows_of_size(int(output_size[0]), int(output_size[1]))  # raises where it has none
+    return pooling.max_unpool(y, idx, output_size)
+
+
+def max_pool_argmax_flat(x: torch.Tensor):
+    """SegResNet's 3x3/2/pad-1 argmax pool over a sharded map: a band's top
+    window reads a halo row from the rank above. The indices are global:
+    flat row-major positions ``h*W + w`` in the whole input plane, as the
+    unsharded op's, so an index can name a row that another rank owns."""
+    if not active():
+        return pooling.max_pool_argmax_flat(x)
+    ext, top, bottom, out_rows = window_input(x, 3, 2, 1)
+    y, idx = F.max_pool2d(_pad_rows(ext, top, bottom, -torch.inf), 3, 2, (0, 1),
+                          return_indices=True)
+    # row 0 of the padded rows is global row o0*2 - 1
+    idx = idx + (2 * out_rows.mine[0] - 1) * x.shape[-1]
+    register(y, out_rows)
+    return y, idx
+
+
+def _unpool_reach(n_pooled: int, out_w: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The first and last canvas row (of width ``out_w``) that each pooled
+    row's flat indices can name: a 3x3/2/1 window reads input rows 2i-1 to
+    2i+1, and the input is ``out_w - 1`` or ``out_w`` columns wide."""
+    i = np.arange(n_pooled)
+    first = (np.maximum(2 * i - 1, 0) * (out_w - 1)) // out_w
+    last = np.minimum(((2 * i + 2) * out_w - 1) // out_w, 2 * n_pooled - 1)
+    return first, last
+
+
+class _BandUnpoolFlat(torch.autograd.Function):
+    """:func:`max_unpool_flat` onto one band of the canvas, ``rows`` rows
+    from global canvas row ``first``, from consecutive global pooled rows
+    (this rank's and fetched ones) in order: their row-major order is the
+    global one, so where indices repeat the last pooled pixel wins, as in
+    ``ops/pooling.py``. Backward: each pooled pixel reads the cotangent at
+    its index where that lies in the band, else 0 (the rank that owns that
+    canvas row supplies it)."""
+
+    @staticmethod
+    def forward(ctx, y, idx, first, rows, out_w):
+        b, c = y.shape[:2]
+        n = rows * out_w
+        pos = idx.reshape(b, c, -1) - first * out_w
+        inside = (pos >= 0) & (pos < n)
+        slot = torch.where(inside, pos, torch.full_like(pos, n))  # n: a spill slot
+        ordinal = torch.arange(pos.shape[2], device=y.device)
+        winner = torch.full((b, c, n + 1), -1, device=y.device, dtype=ordinal.dtype)
+        winner.scatter_reduce_(2, slot, ordinal.expand(b, c, -1), "amax")
+        winner = winner[:, :, :n]
+        values = y.reshape(b, c, -1).gather(2, winner.clamp(min=0))
+        out = torch.where(winner >= 0, values,
+                          torch.zeros((), dtype=y.dtype, device=y.device))
+        ctx.save_for_backward(slot, inside)
+        ctx.shape = y.shape
+        return out.reshape(b, c, rows, out_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, inside = ctx.saved_tensors
+        b, c = g.shape[:2]
+        flat = torch.cat([g.reshape(b, c, -1), g.new_zeros(b, c, 1)], 2)
+        grad = flat.gather(2, slot) * inside
+        return grad.reshape(ctx.shape), None, None, None, None
+
+
+def max_unpool_flat(y: torch.Tensor, idx: torch.Tensor, output_hw) -> torch.Tensor:
+    """SegResNet's unpool over a sharded map, with the unsharded op's
+    semantics (``ops/pooling.py``): the canvas is one row-major plane of
+    the global ``2*ih`` x ``output_hw[1]`` read at the global flat indices of
+    :func:`max_pool_argmax_flat`; each rank holds the canvas rows twice its
+    pooled rows (``output_hw[0]`` is twice this band's pooled rows). Each
+    rank fetches the pooled rows whose indices can land in its canvas rows
+    (so a write to a row that another rank owns reaches its owner), and
+    where indices repeat the pooled pixel of the highest global row-major
+    ordinal wins, across the boundary too. The backward gathers the
+    cotangent at every index from the rank that owns it."""
+    if not active():
+        return pooling.max_unpool_flat(y, idx, output_hw)
+    src = rows_of(y)
+    r = int(output_hw[0]) // y.shape[-2]
+    if r * y.shape[-2] != int(output_hw[0]):
+        raise ValueError(f"spatial: an unpool of {y.shape[-2]} rows onto {output_hw[0]}")
+    out_w = int(output_hw[1])
+    canvas = Rows(tuple((r * lo, r * hi) for lo, hi in src.bounds), r * src.size)
+    first, last = _unpool_reach(src.size, out_w)
+    need = []
+    for c0, c1 in canvas.bounds:
+        hit = np.nonzero((first < c1) & (last >= c0))[0]
+        need.append((int(hit[0]), int(hit[-1]) + 1))
+    ext, _, _ = fetch_rows(y, src, need)
+    ext_idx, _, _ = fetch_rows(idx, src, need)
+    c0, c1 = canvas.mine
+    out = _BandUnpoolFlat.apply(ext, ext_idx, c0, c1 - c0, out_w)
+    register(out, canvas)
+    return out
+
+
+def image_mean(x: torch.Tensor) -> torch.Tensor:
+    """ASPP's image pool over a sharded map: each rank's sum over its rows,
+    summed over the model group both ways (each rank's gradient of the mean
+    is the part its rows carried), over the global H x W; the 1x1 map is
+    replicated on the model ranks."""
+    if not active():
+        return pooling.image_mean(x)
+    rows = rows_of(x)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    part = x.to(acc).sum(dim=(2, 3), keepdim=True)
+    total = mesh.sum_both_ways(part, mesh.model_group())
+    y = (total / (rows.size * x.shape[-1])).to(x.dtype)
+    register(y, REPLICATED)
+    return y
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``F.pixel_shuffle`` over a sharded map: each band's rows times
+    ``r``, the output's layout ``(r*lo, r*hi)`` of ``r`` times the rows."""
+    y = F.pixel_shuffle(x, r)
+    if active():
+        rows = rows_of(x)
+        register(y, Rows(tuple((r * lo, r * hi) for lo, hi in rows.bounds), r * rows.size))
+    return y
+
+
+def global_hw(x: torch.Tensor):
+    """The global (H, W) of a sharded map."""
+    if not active():
+        return plain_shape.hw(x)
+    return rows_of(x).size, int(x.shape[-1])
+
+
+def crop(x: torch.Tensor, top: int, left: int, size) -> torch.Tensor:
+    """``ops/shape.py``'s crop over a sharded map: global rows ``[top, top +
+    n)`` and columns ``[left, left + size[1])``, where ``size`` is the local
+    size of a map whose layout (of ``n`` global rows) the cropped map takes.
+    Each rank's rows come from their owners: a band that holds rows past
+    the cut drops them, and where the cut starts at row 0 and the target's
+    bands are the source's, cut short (DeepLab_DUC_HDC's crops), a band
+    that holds none of them keeps all of its rows and no row moves."""
+    if not active():
+        return plain_shape.crop(x, top, left, size)
+    src, dst = rows_of(x), rows_of_size(int(size[0]), int(size[1]))
+    if top < 0 or top + dst.size > src.size:
+        raise ValueError(f"spatial: rows [{top}, {top + dst.size}) of a {src.size}-row map")
+    need = [(top + lo, top + hi) for lo, hi in dst.bounds]
+    ext, _, _ = fetch_rows(x, src, need)
+    y = ext[..., left:left + int(size[1])]
+    register(y, dst)
     return y
 
 
@@ -478,30 +718,39 @@ def gather_image(t: torch.Tensor, rows: Rows) -> torch.Tensor:
 
 # -- the models -------------------------------------------------------------------
 
+#: the models that set ``spatial_stride``
+SHARDED_MODELS = ("PSPNet", "PSPDenseNet", "UperNet", "DeepLab", "DeepLab_DUC_HDC", "UNet",
+                  "SegNet", "SegResNet")
+
+
 def check_model(model: nn.Module) -> int:
     """The model's total stride over H (``spatial_stride``); a model without
-    one raises ``ValueError``: only PSPNet and UNet are sharded over H."""
+    one raises ``ValueError``: only ``SHARDED_MODELS`` are sharded over H."""
     stride = getattr(model, "spatial_stride", None)
     if stride is None:
         raise ValueError(f"trainer.spatial: {type(model).__name__} is not sharded over "
-                         f"H yet; PSPNet and UNet are (ROADMAP)")
+                         f"H yet; {', '.join(SHARDED_MODELS)} are (ROADMAP)")
     return stride
 
 
 #: the halo class of each conv class with a window over H
 HALO_CLASSES = {nn.ConvTranspose2d: HaloConvTranspose2d, StemConv2d: HaloStemConv2d,
-                S2DStemConv2d: HaloS2DStemConv2d}
+                S2DStemConv2d: HaloS2DStemConv2d, nn.MaxPool2d: HaloMaxPool2d,
+                nn.AvgPool2d: HaloAvgPool2d}
 #: the sharded form of each op a module calls through the attribute
 HALO_OPS = {"_max_pool": max_pool, "_resize": resize_bilinear,
-            "_pool_bins": adaptive_avg_pool_multi}
+            "_pool_bins": adaptive_avg_pool_multi, "_image_pool": image_mean,
+            "_shuffle": pixel_shuffle, "_crop": crop, "_hw": global_hw, "_pool_argmax": max_pool_argmax,
+            "_unpool": max_unpool, "_pool_argmax_flat": max_pool_argmax_flat,
+            "_unpool_flat": max_unpool_flat}
 
 
 def shard_windows(model: nn.Module) -> int:
-    """Swap every conv of ``model`` with a window or a stride over H for its
-    halo counterpart, in place (class swap: parameters, keys and any
-    tensor-parallel slicing stay), and set the sharded pools and resizes
-    on the modules that call them through ``HALO_OPS``' attributes;
-    returns how many convs. A conv that already took a sharded class keeps
+    """Swap every conv and pool module of ``model`` with a window or a
+    stride over H for its halo counterpart, in place (class swap:
+    parameters, keys and any tensor-parallel slicing stay), and set the
+    sharded ops on the modules that call them through ``HALO_OPS``'
+    attributes; returns how many modules were swapped. A conv that already took a sharded class keeps
     its own (``core/tensor_parallel.py`` gives it the halo)."""
     n = 0
     for m in model.modules():

@@ -7,7 +7,10 @@ two 3x3 convs, dropout 0.1 and a biased 1x1 classifier, then a x4 bilinear
 upsample with ``align_corners=True``. The ResNet variant is torchvision's
 with output-stride surgery, its low-level tap layer1; Xception's is block1.
 
-Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``.
+Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. It
+can be sharded over H (``core/spatial.py``; total stride
+``output_stride``), which swaps the ResNet stem's pool, ASPP's image pool
+and every resize.
 Parameter names follow the original (``backbone.*``, ``ASSP.*``,
 ``decoder.*``; the ResNet stem is ``backbone.layer0.{0,1}``), so
 ``segtpu.utils.weight_convert.convert_deeplab_xception`` and
@@ -26,6 +29,7 @@ from segtpu_torch.backbones.xception import XceptionFeatures
 from segtpu_torch.nn.blocks import ASPP
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, init_parameters,
                                     kaiming_normal_init, zeros_init)
+from segtpu_torch.ops.pooling import max_pool
 from segtpu_torch.ops.resize import resize_bilinear
 from segtpu_torch.pretrained import Layout, resnet_rules
 
@@ -48,9 +52,12 @@ class _ResNetBackbone(nn.Module):
         self.out_channels = feats.out_channels
         self.low_level_channels = feats.feature_channels[0]
 
+    #: the stem pool, which core/spatial.py's shard_windows swaps per instance
+    _max_pool = staticmethod(max_pool)
+
     def forward(self, x):
         feats = run_features(self.layer0, [self.layer1, self.layer2,
-                                           self.layer3, self.layer4], x)
+                                           self.layer3, self.layer4], x, self._max_pool)
         return feats[3], feats[0]
 
 
@@ -73,15 +80,20 @@ class DeepLabDecoder(nn.Module):
             conv2d(256, num_classes, 1, bias=True, weight_init=kaiming_normal_init,
                    bias_init=zeros_init))
 
+    #: the upsample, which core/spatial.py's shard_windows swaps per instance
+    _resize = staticmethod(resize_bilinear)
+
     def forward(self, x, low_level):
         ll = self.relu(self.bn1(self.conv1(low_level)))
-        x = resize_bilinear(x, ll.shape[-2:], align_corners=True)
+        x = self._resize(x, ll.shape[-2:], align_corners=True)
         return self.output(torch.cat([ll, x], dim=1))
 
 
 class DeepLab(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("backbone",)
+    #: the final upsample, which core/spatial.py's shard_windows swaps per instance
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  backbone: str = "xception", pretrained: Union[bool, str] = False,
@@ -99,12 +111,14 @@ class DeepLab(FreezableBN):
         self.ASSP = ASPP(self.backbone.out_channels, output_stride=output_stride,
                          num_branches=4)
         self.decoder = DeepLabDecoder(self.backbone.low_level_channels, num_classes)
+        #: the stride of the smallest map, for sharding H (core/spatial.py)
+        self.spatial_stride = output_stride
         init_parameters(self, generator)
 
     def forward(self, x):
         y, low_level = self.backbone(x)
         y = self.decoder(self.ASSP(y), low_level)
-        return {"out": resize_bilinear(y, x.shape[-2:], align_corners=True)}
+        return {"out": self._resize(y, x.shape[-2:], align_corners=True)}
 
     def pretrained_layout(self) -> Layout:
         """torchvision's ResNet, or DeepLab's aligned Xception, 2-D pointwise

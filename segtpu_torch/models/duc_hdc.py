@@ -10,7 +10,10 @@ ReLU included, as the original's). Both of segtpu's crops are kept: the
 decoder's DUC output is cropped to the low-level map, and the head's output
 to the input.
 
-Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``.
+Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. It
+can be sharded over H (``core/spatial.py``; total stride 8, or 4 at output
+stride 4), which swaps the stem pool, ASPP's image pool, the resizes, the
+pixel shuffles and both crops, which then cut global rows.
 Parameter names follow the original (``backbone.layer0.*``,
 ``backbone.layerX.*``, ``ASSP.*``, ``decoder.{conv1,bn1,DUC,output}.*``,
 ``DUC_out.*``), so ``segtpu.utils.weight_convert.convert_duc_hdc`` reads
@@ -26,6 +29,7 @@ import torch
 from segtpu_torch.models.deeplabv3_plus import DeepLabDecoder, _ResNetBackbone
 from segtpu_torch.nn.blocks import ASPP, DUC
 from segtpu_torch.nn.layers import FreezableBN, init_parameters
+from segtpu_torch.ops.shape import crop
 from segtpu_torch.pretrained import Layout, resnet_rules
 
 
@@ -38,15 +42,20 @@ class DUCDecoder(DeepLabDecoder):
         super().__init__(low_level_channels, num_classes, features)
         self.DUC = DUC(features, features, upscale=2)
 
+    #: the crop, which core/spatial.py's shard_windows swaps per instance
+    _crop = staticmethod(crop)
+
     def forward(self, x, low_level):
         ll = self.relu(self.bn1(self.conv1(low_level)))
-        x = self.DUC(x)[..., :ll.shape[-2], :ll.shape[-1]]
+        x = self._crop(self.DUC(x), 0, 0, ll.shape[-2:])
         return self.output(torch.cat([ll, x], dim=1))
 
 
 class DeepLab_DUC_HDC(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("backbone",)
+    #: the crop, which core/spatial.py's shard_windows swaps per instance
+    _crop = staticmethod(crop)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  backbone: str = "resnet101", pretrained: Union[bool, str] = False,
@@ -59,9 +68,12 @@ class DeepLab_DUC_HDC(FreezableBN):
         self.pretrained, self.backbone_name = pretrained, backbone
         # the HDC plan fixes layer3/4's strides; output_stride picks the
         # stem's stride and ASPP's dilations
+        stem_stride = 1 if output_stride == 4 else 2
         self.backbone = _ResNetBackbone(
             backbone, 32, in_channels, hdc="bigger" if dilation_bigger else "rf",
-            stem_stride=1 if output_stride == 4 else 2)
+            stem_stride=stem_stride)
+        #: the stride of the smallest map, for sharding H (core/spatial.py)
+        self.spatial_stride = 4 * stem_stride
         self.ASSP = ASPP(self.backbone.out_channels, output_stride=output_stride,
                          num_branches=6)
         self.decoder = DUCDecoder(self.backbone.low_level_channels, num_classes)
@@ -71,7 +83,7 @@ class DeepLab_DUC_HDC(FreezableBN):
     def forward(self, x):
         y, low_level = self.backbone(x)
         y = self.decoder(self.ASSP(y), low_level)
-        return {"out": self.DUC_out(y)[..., :x.shape[-2], :x.shape[-1]]}
+        return {"out": self._crop(self.DUC_out(y), 0, 0, x.shape[-2:])}
 
     def pretrained_layout(self) -> Layout:
         """torchvision's ResNet."""

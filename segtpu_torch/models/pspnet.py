@@ -11,11 +11,12 @@ output (480 for DenseNet-201, whose transition3 gives 896 channels).
 Inputs and logits are NCHW. ``forward`` returns ``{"out": logits}`` and, in
 train mode with ``use_aux``, ``"aux"`` too. PSPNet takes segtpu's
 ``remat_backbone`` (each residual block recomputed in the backward) and
-``s2d_stem`` (``ops/s2d.py``), and can be sharded over H
-(``core/spatial.py``; total stride 8), which swaps its pool and resizes. Parameter names follow the
-original torch repo (``initial.*``, ``layerX.*``, ``master_branch.*``,
-``auxiliary_branch.*``), so ``segtpu.utils.weight_convert.convert_pspnet``
-reads this model's ``state_dict()`` and the original ``.pth`` files load.
+``s2d_stem`` (``ops/s2d.py``). Both models can be sharded over H
+(``core/spatial.py``; total stride 8), which swaps their pools and resizes.
+Parameter names follow the original torch repo (``initial.*``,
+``layerX.*``, ``master_branch.*``, ``auxiliary_branch.*``), so
+``segtpu.utils.weight_convert.convert_pspnet`` reads this model's
+``state_dict()`` and the original ``.pth`` files load.
 """
 
 from __future__ import annotations
@@ -106,9 +107,15 @@ class PSPDenseNet(FreezableBN):
     ``auxiliary_branch``), so ``segtpu.utils.weight_convert.
     convert_pspdensenet`` reads this model's ``state_dict()``.
     ``remat_backbone`` checkpoints each dense layer (segtpu's per-dense-layer
-    remat); it changes neither the gradients nor the running statistics."""
+    remat); it changes neither the gradients nor the running statistics.
+    Sharded over H (total stride 8), the DenseNet's pools take their halo
+    classes and the resizes work in global coordinates."""
 
     backbone_modules = densenet.DenseNetFeatures.module_names
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 8
+    #: the upsamples, which core/spatial.py's shard_windows swaps per instance
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  backbone: str = "densenet201", pretrained: Union[bool, str] = False,
@@ -134,9 +141,9 @@ class PSPDenseNet(FreezableBN):
     def forward(self, x):
         size = x.shape[-2:]
         y, x_aux = densenet.run_features(self, x)
-        result = {"out": resize_bilinear(self.master_branch(y), size)}
+        result = {"out": self._resize(self.master_branch(y), size)}
         if self.use_aux and self.training:
-            result["aux"] = resize_bilinear(self.auxiliary_branch(x_aux), size)
+            result["aux"] = self._resize(self.auxiliary_branch(x_aux), size)
         return result
 
     def pretrained_layout(self) -> Layout:

@@ -12,7 +12,9 @@ epilogue: the ceil-crop to the pooled grid (its odd and even branches), the
 unpool to twice that grid with the stem pool's indices, a transposed conv,
 the classifier and the centre crop with its odd-size trims.
 
-Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``.
+Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. Both
+models can be sharded over H (``core/spatial.py``; total stride 32), which
+swaps their argmax pools and unpools and SegResNet's crops.
 Parameter names follow the original (SegNet: ``stage{1..5}_encoder.{3k,
 3k+1}``, ``stage{1..5}_decoder.*`` with the classifier at
 ``stage5_decoder.6``; SegResNet: ``first_conv.{0,1}``,
@@ -31,7 +33,9 @@ from torch import nn
 from segtpu_torch.backbones.vgg import VGG16_STAGES, VGG16Stage, run_with_indices
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transpose2d,
                                     init_parameters, kaiming_normal_init, zeros_init)
-from segtpu_torch.ops.pooling import max_pool_argmax_flat, max_unpool, max_unpool_flat
+from segtpu_torch.ops.pooling import (max_pool_argmax, max_pool_argmax_flat, max_unpool,
+                                      max_unpool_flat)
+from segtpu_torch.ops.shape import crop, hw
 from segtpu_torch.pretrained import Layout
 
 #: SegNet's decoder stages, the reversed VGG stages with the channel step on
@@ -42,6 +46,11 @@ DECODER_WIDTHS = ((512, 512, 512), (512, 512, 256), (256, 256, 128), (128, 64), 
 class SegNet(FreezableBN):
     #: segtpu's VGG encoder is its ``backbone`` scope: lr/10
     backbone_modules = tuple(f"stage{i}_encoder" for i in range(1, 6))
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 32
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _pool_argmax = staticmethod(max_pool_argmax)
+    _unpool = staticmethod(max_unpool)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  pretrained: Union[bool, str] = False,
@@ -71,10 +80,10 @@ class SegNet(FreezableBN):
 
     def forward(self, x):
         y, saved = run_with_indices(
-            [getattr(self, name) for name in self.backbone_modules], x)
+            [getattr(self, name) for name in self.backbone_modules], x, self._pool_argmax)
         for si in range(len(DECODER_WIDTHS)):
             idx, size = saved[len(saved) - 1 - si]
-            y = getattr(self, f"stage{si + 1}_decoder")(max_unpool(y, idx, size))
+            y = getattr(self, f"stage{si + 1}_decoder")(self._unpool(y, idx, size))
         return {"out": y}
 
     def pretrained_layout(self) -> Layout:
@@ -145,6 +154,13 @@ class _LastBottleneck(_Residual):
 class SegResNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("first_conv", "encoder")
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 32
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _pool_argmax_flat = staticmethod(max_pool_argmax_flat)
+    _unpool_flat = staticmethod(max_unpool_flat)
+    _crop = staticmethod(crop)
+    _hw = staticmethod(hw)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  pretrained: Union[bool, str] = False,
@@ -180,31 +196,35 @@ class SegResNet(FreezableBN):
         init_parameters(self, generator)
 
     def forward(self, x):
-        h, w = x.shape[-2:]
+        h, w = self._hw(x)
         y = self.first_conv(x)
-        y, idx = max_pool_argmax_flat(y)
+        y, idx = self._pool_argmax_flat(y)
         y = self.decoder(self.encoder(y))
         # segtpu's epilogue: ceil-crop to the pooled grid, unpool to twice
         # it (the indices are flat in the stem pool's input plane),
         # transposed conv, classifier, centre crop with the odd-size trims
-        ih, iw = idx.shape[-2:]
-        yh, yw = y.shape[-2:]
-        hd, wd = -(-(yh - ih) // 2), -(-(yw - iw) // 2)
+        # (the ceil-crop's follow ih's parity on both axes), all in global
+        # sizes
+        ih, iw = self._hw(idx)
+        yh, yw = self._hw(y)
         if (yh, yw) != (ih, iw):
-            if ih % 2 == 1:
-                y = y[..., hd:yh - (hd - 1), wd:yw - (wd - 1)]
-            else:
-                y = y[..., hd:yh - hd, wd:yw - wd]
-        y = max_unpool_flat(y, idx, (2 * ih, 2 * iw))
+            hd, wd, odd = -(-(yh - ih) // 2), -(-(yw - iw) // 2), ih % 2
+            rows, cols = min(yh - 2 * hd + odd, yh - hd), min(yw - 2 * wd + odd, yw - wd)
+            if (rows, cols) == (ih, iw):
+                y = self._crop(y, hd, wd, idx.shape[-2:])
+            else:  # the unpool below raises, as segtpu's
+                y = y[..., hd:hd + rows, wd:wd + cols]
+        y = self._unpool_flat(y, idx, (2 * idx.shape[-2], 2 * iw))
         out = self.last_conv(y)
-        oh, ow = out.shape[-2:]
+        oh, ow = self._hw(out)
         if (oh, ow) != (h, w):
             hd, wd = (oh - h) // 2, (ow - w) // 2
-            out = out[..., hd:oh - hd, wd:ow - wd]
-            if hd % 2 != 0:
-                out = out[..., :-1, :]
-            if wd % 2 != 0:
-                out = out[..., :, :-1]
+            rows = oh - 2 * hd - hd % 2
+            cols = ow - 2 * wd - wd % 2
+            if (rows, cols) == (h, w):
+                out = self._crop(out, hd, wd, x.shape[-2:])
+            else:  # the odd trims miss the input's size, as segtpu's
+                out = out[..., hd:hd + rows, wd:wd + cols]
         return {"out": out}
 
     def pretrained_layout(self) -> Layout:

@@ -8,7 +8,8 @@ whose bottleneck keeps the input width, :class:`FPNFuse` to ``fpn_out``, a
 ``align_corners``.
 
 Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}`` in
-train and eval mode. Parameter names follow the original torch repo
+train and eval mode. It can be sharded over H (``core/spatial.py``; total
+stride ``output_stride``), which swaps the stem pool and every resize. Parameter names follow the original torch repo
 (``backbone.initial.{0,1}``, ``backbone.layerX.*``, ``PPN.*``, ``FPN.*``,
 ``head``), so ``segtpu.utils.weight_convert.convert_upernet`` reads this
 model's ``state_dict()`` wherever the layout is the original's (see
@@ -33,6 +34,8 @@ from segtpu_torch.pretrained import Layout, resnet_rules
 class UperNet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("backbone",)
+    #: the final upsample, which core/spatial.py's shard_windows swaps per instance
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  backbone: str = "resnet101", pretrained: Union[bool, str] = False,
@@ -48,6 +51,8 @@ class UperNet(FreezableBN):
         self.backbone = ResNetFeatures(arch=backbone, style="torchvision",
                                        output_stride=output_stride,
                                        in_channels=in_channels)
+        #: the stride of the smallest map, for sharding H (core/spatial.py)
+        self.spatial_stride = output_stride
         widths = self.backbone.feature_channels
         self.PPN = PSPModule(widths[-1], (1, 2, 4, 6), out_features=widths[-1])
         self.FPN = FPNFuse(widths, fpn_out)
@@ -59,7 +64,7 @@ class UperNet(FreezableBN):
         feats = self.backbone(x)
         feats[-1] = self.PPN(feats[-1])
         y = self.head(self.FPN(feats))
-        return {"out": resize_bilinear(y, x.shape[-2:], align_corners=False)}
+        return {"out": self._resize(y, x.shape[-2:], align_corners=False)}
 
     def pretrained_layout(self) -> Layout:
         """torchvision's ResNet."""

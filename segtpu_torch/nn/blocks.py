@@ -13,7 +13,7 @@ from torch import nn
 
 from segtpu_torch.nn.layers import (ConvBNAct, batch_norm, conv2d, kaiming_normal_init,
                                     torch_conv_kernel_init)
-from segtpu_torch.ops.pooling import adaptive_avg_pool_multi
+from segtpu_torch.ops.pooling import adaptive_avg_pool_multi, image_mean
 from segtpu_torch.ops.resize import resize_bilinear
 
 
@@ -98,7 +98,9 @@ class ASPP(nn.Module):
     Keys follow the original ``ASSP``: ``aspp{i}.{0,1}``, ``avg_pool.{1,2}``
     (index 0 held its adaptive pool; here the mean is taken in ``forward``),
     ``conv1`` and ``bn1``. The image pool's BN normalizes a 1x1 map, so in
-    train mode it needs a batch of 2 or more.
+    train mode it needs a batch of 2 or more. Under spatial sharding the
+    image pool is the whole image's on every rank of a model group, so its
+    BN is marked ``replicated_maps``.
     """
 
     def __init__(self, in_ch: int, output_stride: int = 16, num_branches: int = 4,
@@ -117,18 +119,23 @@ class ASPP(nn.Module):
         self.avg_pool = nn.Sequential(
             nn.Identity(), conv2d(in_ch, features, 1, weight_init=kaiming_normal_init),
             batch_norm(features), nn.ReLU(inplace=True))
+        # under spatial sharding the image pool is the whole image's on every
+        # model rank
+        self.avg_pool[2].replicated_maps = True
         self.conv1 = conv2d(features * (self.num_branches + 1), features, 1,
                             weight_init=kaiming_normal_init)
         self.bn1 = batch_norm(features)
         self.relu = nn.ReLU(inplace=True)
         self.dropout = nn.Dropout(0.5)
 
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _image_pool = staticmethod(image_mean)
+    _resize = staticmethod(resize_bilinear)
+
     def forward(self, x):
         outs = [getattr(self, f"aspp{i + 1}")(x) for i in range(self.num_branches)]
-        img = x.to(torch.promote_types(x.dtype, torch.float32)).mean(
-            dim=(2, 3), keepdim=True).to(x.dtype)
-        img = self.avg_pool[1:](img)
-        outs.append(resize_bilinear(img, x.shape[-2:], align_corners=True))
+        img = self.avg_pool[1:](self._image_pool(x))
+        outs.append(self._resize(img, x.shape[-2:], align_corners=True))
         y = self.relu(self.bn1(self.conv1(torch.cat(outs, dim=1))))
         return self.dropout(y)
 
@@ -164,17 +171,20 @@ class FPNFuse(nn.Module):
                                          for _ in range(n - 1))
         self.conv_fusion = ConvBNAct(n * fpn_out, fpn_out, 3, padding=1)
 
+    #: the ops over H, which core/spatial.py's shard_windows swaps per instance
+    _resize = staticmethod(resize_bilinear)
+
     def forward(self, features):
         feats = list(features)
         if self.lateral_p0 is not None:
             feats[0] = self.lateral_p0(feats[0])
         for i, conv in enumerate(self.conv1x1, start=1):
             feats[i] = conv(feats[i])
-        merged = [resize_bilinear(feats[j + 1], feats[j].shape[-2:], align_corners=True)
+        merged = [self._resize(feats[j + 1], feats[j].shape[-2:], align_corners=True)
                   + feats[j] for j in range(len(feats) - 1)]
         pyramid = [conv(m) for conv, m in zip(self.smooth_conv, merged)] + [feats[-1]]
         size = pyramid[0].shape[-2:]
-        pyramid = [pyramid[0]] + [resize_bilinear(p, size, align_corners=True)
+        pyramid = [pyramid[0]] + [self._resize(p, size, align_corners=True)
                                   for p in pyramid[1:]]
         return self.conv_fusion(torch.cat(pyramid, dim=1))
 
@@ -211,5 +221,8 @@ class DUC(nn.Module):
         self.bn = batch_norm(features * upscale * upscale)
         self.relu = nn.ReLU(inplace=True)
 
+    #: the shuffle, which core/spatial.py's shard_windows swaps per instance
+    _shuffle = staticmethod(F.pixel_shuffle)
+
     def forward(self, x):
-        return F.pixel_shuffle(self.relu(self.bn(self.conv(x))), self.upscale)
+        return self._shuffle(self.relu(self.bn(self.conv(x))), self.upscale)

@@ -2,7 +2,7 @@
 
 Counterpart of ``segtpu/ops/pooling.py``: the ResNet stem's 3x3/2/pad-1 max
 pool, UNet's and ENet's ceil-mode pools, the PSP pyramid's adaptive average
-pools, and the argmax pools and unpools of SegNet, SegResNet and ENet.
+pools, ASPP's image mean, and the argmax pools and unpools of SegNet, SegResNet and ENet.
 segtpu re-derived these as TPU matmuls, one-hot expands and compare/select
 planes; here they are torch's own pooling, which defines the semantics
 segtpu reproduces (bin i of an adaptive pool covers ``[floor(i*in/out),
@@ -29,6 +29,13 @@ def max_pool(x: torch.Tensor, window=2, stride=None, padding=0,
 def adaptive_avg_pool_multi(x: torch.Tensor, sizes: Sequence) -> List[torch.Tensor]:
     """``adaptive_avg_pool2d(x, s)`` for every bin size ``s``."""
     return [F.adaptive_avg_pool2d(x, s) for s in sizes]
+
+
+def image_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over H and W, kept as a 1x1 map, summed in at least fp32
+    (ASPP's image pool)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)).mean(
+        dim=(2, 3), keepdim=True).to(x.dtype)
 
 
 def max_pool_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

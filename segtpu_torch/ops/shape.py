@@ -1,4 +1,4 @@
-"""Shape alignment with the original's ``F.pad`` semantics.
+"""Shape alignment: the original's ``F.pad`` semantics, and crops.
 
 Counterpart of ``segtpu/ops/shape.py::pad_or_crop_tl``. The original aligns
 a decoder output to a skip or identity with ``F.pad(x, (dw, 0, dh, 0))``
@@ -20,3 +20,16 @@ def pad_or_crop_tl(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if dh == 0 and dw == 0:
         return x
     return F.pad(x, (dw, 0, dh, 0))
+
+
+def crop(x: torch.Tensor, top: int, left: int, size) -> torch.Tensor:
+    """NCHW ``x``'s rows ``[top, top + size[0])`` and columns ``[left, left
+    + size[1])`` (DeepLab_DUC_HDC's crops to the low-level map and to the
+    input, SegResNet's ceil-crop and centre crop)."""
+    return x[..., top:top + int(size[0]), left:left + int(size[1])]
+
+
+def hw(x: torch.Tensor):
+    """The map's (H, W) (its global size under spatial sharding, where the
+    model's crop arithmetic reads it through an attribute)."""
+    return int(x.shape[-2]), int(x.shape[-1])

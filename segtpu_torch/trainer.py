@@ -17,6 +17,9 @@ default), segtpu's events go to ``<log_dir>/<name>/<timestamp>/`` (log_dir
 ``saved/runs`` by default; ``utils/tensorboard.py``): ``train/loss`` every
 ``log_per_iter`` iterations, the epoch's train metrics and learning rates,
 the val metrics and the 15-row val grid of input, target and prediction.
+``progress_bar`` (on by default, as segtpu's) wraps each epoch in a tqdm
+bar on rank 0, its text the loss and step times at each ``log_per_iter``;
+the log line stays.
 ``profile: N`` traces the first N steps of the first epoch with
 ``torch.profiler`` into ``<checkpoint dir>/profile/``, a Chrome trace.
 
@@ -40,10 +43,11 @@ the ranks out as a (data, model) mesh with N model ranks
 (``core/mesh.py``) and shards every conv of 256 or more output channels
 over them (``core/tensor_parallel.py``, after the pretrained load, before
 the optimizer); ``trainer.spatial`` splits each image's H over the model
-ranks as well (``core/spatial.py``; PSPNet and UNet), each rank loading its
-data index's rows and keeping its band of them; ``trainer.remat`` recomputes
-the forward in the backward (``core/steps.py``). Checkpoints hold the
-one-device layout either way.
+ranks as well (``core/spatial.py``; the models of
+``spatial.SHARDED_MODELS``), each rank loading its data index's rows and
+keeping its band of them; ``trainer.remat`` recomputes the forward in the
+backward (``core/steps.py``). Checkpoints hold the one-device layout
+either way.
 """
 
 from __future__ import annotations
@@ -176,6 +180,7 @@ class Trainer:
         self.do_validation = cfg_trainer.get("val", True) and val_loader is not None
         self.val_per_epochs = cfg_trainer.get("val_per_epochs", 1)
         self.log_per_iter = cfg_trainer.get("log_per_iter", 20)
+        self.progress_bar = cfg_trainer.get("progress_bar", True)
         self.history = []
 
         model = model.to(self.device)
@@ -413,9 +418,17 @@ class Trainer:
         tic = time.perf_counter()
         # D: the wait for the next batch on the device. The finally stops a
         # trace that a SIGTERM (or a failed step) ends early, so it is whole.
+        batches = DevicePrefetcher(self.train_loader, self.device, rows=self.train_rows)
+        bar = None
+        if self.progress_bar:
+            # imported here, as segtpu does: with the key on, a missing tqdm
+            # raises
+            from tqdm import tqdm
+
+            batches = bar = tqdm(batches, total=iters_per_epoch, ncols=100,
+                                 desc=f"epoch {epoch}", disable=not mesh.is_main())
         try:
-            for it, (images, labels) in enumerate(
-                    DevicePrefetcher(self.train_loader, self.device, rows=self.train_rows)):
+            for it, (images, labels) in enumerate(batches):
                 data_time.update(time.perf_counter() - tic)
                 if profiler is not None and it == self.profile_steps:
                     self._stop_profile(profiler)
@@ -445,9 +458,15 @@ class Trainer:
                     self.wrt_step = (epoch - 1) * iters_per_epoch + it_abs + 1
                     if self.writer is not None:
                         self.writer.add_scalar("train/loss", loss_val, self.wrt_step)
+                    if bar is not None:
+                        bar.set_description(
+                            f"epoch {epoch} | loss {loss_val:.3f} | "
+                            f"B {batch_time.average:.2f} D {data_time.average:.2f}")
                 batch_time.update(time.perf_counter() - tic)
                 tic = time.perf_counter()
         finally:
+            if bar is not None:
+                bar.close()
             if profiler is not None:
                 self._stop_profile(profiler)
         # the loss is the global batch's on every rank; the stats are summed

@@ -96,7 +96,8 @@ def test_segresnet_epilogue_takes_both_crop_branches(ports, monkeypatch):
         seen.append((tuple(y.shape[-2:]), tuple(idx.shape[-2:]), tuple(output_hw)))
         return unpool(y, idx, output_hw)
 
-    monkeypatch.setattr(segnet, "max_unpool_flat", spy)
+    # the model calls the unpool through its attribute (core/spatial.py swaps it)
+    monkeypatch.setattr(segnet.SegResNet, "_unpool_flat", staticmethod(spy))
     with torch.no_grad():
         for hw in (65, 72):
             ports["SegResNet"].eval()(torch.zeros(1, 3, hw, hw))

@@ -70,6 +70,38 @@ def test_cli_trains_on_cpu(tmp_path):
     assert "kernel launches: stem_conv_wgrad=0" in log
 
 
+# the progress bar's text at a log_per_iter, as segtpu's: the epoch's log
+# line ("TRAIN epoch 1 | loss 1.234 | mIoU ...") does not match it
+BAR_TEXT = r"epoch 1 \| loss \d+\.\d{3} \| B \d+\.\d{2} D \d+\.\d{2}"
+
+
+@pytest.mark.parametrize("bar", [True, False])
+def test_cli_draws_the_progress_bar_unless_turned_off(tmp_path, bar):
+    """``trainer.progress_bar`` is on by default, as segtpu's: a tqdm bar
+    over the epoch on stderr, its text set at each ``log_per_iter``; with
+    ``progress_bar: false`` there is none. The log lines stay either way."""
+    keys = {"epochs": 1, "val": False, "save_dir": str(tmp_path / "saved"),
+            "log_dir": str(tmp_path / "runs")}
+    cfg = _config(**keys) if bar else _config(progress_bar=False, **keys)
+    res = _run_cli(tmp_path, "--device", "cpu", config=cfg)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert bool(re.search(BAR_TEXT, res.stderr)) == bar
+    assert ("epoch 1:   0%" in res.stderr) == bar  # the bar drawn before a step
+    assert re.search(r"epoch 1 iter 2 \| loss [0-9.]+ \| lr", res.stderr)
+    assert re.search(r"TRAIN epoch 1 \| loss [0-9.]+", res.stderr)
+
+
+def test_trainer_without_tqdm_raises_with_the_bar_on(monkeypatch, tmp_path):
+    """With the key on and no tqdm, the epoch raises ``ImportError``, as
+    segtpu's does, before its first step; never a quiet skip."""
+    monkeypatch.setitem(sys.modules, "tqdm", None)
+    trainer = _cpu_trainer(_config(epochs=1, val=False, save_dir=str(tmp_path / "saved"),
+                                   log_dir=str(tmp_path / "runs")))
+    with pytest.raises(ImportError):
+        trainer.train()
+    assert trainer.state.step == 0
+
+
 def test_cli_without_device_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device is usable here")
@@ -182,7 +214,7 @@ def test_cli_device_ids_and_the_devices_a_run_takes(monkeypatch):
 def test_cli_trains_on_two_cpu_processes(tmp_path):
     """``trainer.devices: 2`` with ``--device cpu`` starts 2 gloo processes:
     rank 0 alone logs the run (two epochs, a finite loss and a Mean_IoU in
-    each) and writes its files."""
+    each), draws the progress bar and writes its files."""
     cfg = _config(devices=2, save_period=1, save_dir=str(tmp_path / "saved"),
                   log_dir=str(tmp_path / "runs"))
     res = _run_cli(tmp_path, "--device", "cpu", config=cfg)
@@ -192,6 +224,11 @@ def test_cli_trains_on_two_cpu_processes(tmp_path):
     assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
     assert len(re.findall(r"VAL   epoch \d \| .*mIoU ([0-9.]+)", res.stderr)) == 2
     assert res.stderr.count("kernel launches: stem_conv_wgrad=0") == 1
+    # the progress bar (on by default) is drawn on rank 0 alone: one bar an
+    # epoch, its text set there
+    for epoch in (1, 2):
+        assert res.stderr.count(f"epoch {epoch}:   0%") == 1
+    assert re.search(BAR_TEXT, res.stderr)
     run_dir, = (tmp_path / "saved" / "TinyPSP").iterdir()
     assert sorted(p.name for p in run_dir.iterdir()) == [
         "best_model", "checkpoint-epoch1", "checkpoint-epoch2", "config.json"]

@@ -14,6 +14,7 @@ model index m takes its band of rows.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +44,7 @@ POOL_CASES = [(3, 2, 1, False), (2, 2, 0, True), (3, 2, 0, True), (3, 1, 1, Fals
 RESIZE_CASES = [(h, w, ac, None) for h, w in ((26, 22), (7, 9), (13, 17), (25, 11), (13, 11))
                 for ac in (False, True)] + [(13, 11, ac, 6) for ac in (False, True)]
 BINS = (1, 2, 3, 6)
+BINS_SHORT = (1, 2, 4, 6)  # UperNet's, on a map of fewer rows than bins
 # the stem convs on a band: (class name, k)
 STEM_CASES = [("StemConv2d", 3), ("StemConv2d", 7), ("S2DStemConv2d", 3),
               ("S2DStemConv2d", 7)]
@@ -50,9 +52,32 @@ STEM_CASES = [("StemConv2d", 3), ("StemConv2d", 7), ("S2DStemConv2d", 3),
 STEP_HW, STEP_BATCH, STEP_STEPS = dw.STEP_HW, dw.STEP_BATCH, dw.STEP_STEPS
 # the spatial steps: (model, H) at uneven and even splits (PSPNet at 40: 24 /
 # 16 rows; UNet at 33: 32 / 1, odd maps and the decoder's resizes; at 48:
-# 32 / 16)
-SPATIAL_CASES = [("PSPNet", 40), ("PSPNet", 32), ("UNet", 33), ("UNet", 48), ("UNet", 32)]
+# 32 / 16), every model at tests/torch_dist_worker.py's small configuration:
+# UperNet and DeepLab at 48 (32 / 16); PSPDenseNet at 72 (40 / 32), its
+# padding-0 stem leaving rank 1 fewer rows at each conv; DeepLab_DUC_HDC at
+# 65 (40 / 25), both crops cutting rank 1's rows; SegNet at 33 (32 / 1), the
+# ceil-mode partial windows on rank 1; SegResNet at 65 (64 / 1), its stem
+# pool's indices crossing the boundary and its centre crop's odd trims, and
+# at 128 (64 / 64: at 64 its float64 steps part from any other summation
+# order by 4e-4 of the update within 3 steps)
+SPATIAL_CASES = [("PSPNet", 40), ("PSPNet", 32), ("UNet", 33), ("UNet", 48), ("UNet", 32),
+                 ("UperNet", 48), ("UperNet", 32), ("PSPDenseNet", 72), ("PSPDenseNet", 64),
+                 ("DeepLab", 48), ("DeepLab", 32), ("DeepLab_DUC_HDC", 65),
+                 ("DeepLab_DUC_HDC", 64), ("SegNet", 33), ("SegNet", 64), ("SegResNet", 65),
+                 ("SegResNet", 128)]
+# PSPDenseNet with remat_backbone: one spatial step, whose recompute runs
+# under the same layouts (against the one-process step without remat)
+REMAT_CASE = ("PSPDenseNet", 64)
+# the spatial cases held against segtpu's spatial step on its 2 x 2 mesh,
+# at sizes where it agrees with its unsharded one (tests/test_torch_model_axis.py)
+SEG_CASES = [("PSPNet", 40), ("UNet", 48), ("UperNet", 48), ("PSPDenseNet", 72),
+             ("DeepLab", 48), ("DeepLab_DUC_HDC", 64), ("SegNet", 64), ("SegResNet", 128)]
 SPATIAL_BATCH, SPATIAL_STEPS = 2, 3
+# each spatial model's map whose rows a test counts: (module, its stride)
+PROBES = {"PSPNet": ("layer4", 8), "UNet": ("middle_conv", 16),
+          "UperNet": ("backbone.layer4", 16), "PSPDenseNet": ("block4", 8),
+          "DeepLab": ("backbone.layer4", 16), "DeepLab_DUC_HDC": ("backbone.layer4", 8),
+          "SegNet": ("stage5_encoder", 16), "SegResNet": ("encoder", 32)}
 # the zoo under TP: convs of 16 or more channels sharded, so each model
 # shards some (FCN8's narrowed VGG included)
 ZOO_MIN_CHANNELS = 16
@@ -87,13 +112,12 @@ def gathered(model, opt=None):
 
 
 def rank_spread(sd):
-    """The largest |this rank - rank 0| over every tensor of ``sd``."""
-    worst = 0.0
-    for v in sd.values():
-        ref = v.clone()
-        dist.broadcast(ref, 0)
-        worst = max(worst, float((v.double() - ref.double()).abs().max()))
-    return worst
+    """The largest |this rank - rank 0| over every tensor of ``sd`` (one
+    broadcast of them all, in float64)."""
+    mine = torch.cat([v.double().reshape(-1) for v in sd.values()])
+    ref = mine.clone()
+    dist.broadcast(ref, 0)
+    return float((mine - ref).abs().max())
 
 
 # -- inputs, shared with the test process --------------------------------------------
@@ -149,12 +173,11 @@ def spatial_batches(hw):
     return out
 
 
-def spatial_model(name):
+def spatial_model(name, **kwargs):
     from segtpu_torch.models import get_model
 
-    args = {"backbone": "resnet18"} if name == "PSPNet" else {}
     return dw.no_dropout(get_model(name, device="cpu", seed=1, num_classes=CLASSES,
-                                   **args)).double()
+                                   **dw.ZOO[name][0], **kwargs)).double()
 
 
 # -- the cases -------------------------------------------------------------------------
@@ -269,7 +292,124 @@ def case_ops(out):
     # each model rank carries a part of the replicated bins' gradient
     part = 0.25 if mesh.model_index() == 0 else 0.75
     res["bins"] = _run_op(x, rows, bins_fn, lambda shape: g_bins * part)
+    # the bins of a 3-row map split 2 / 1: the ranks' partial sums come out
+    # of the einsum in other layouts, which the all-reduce must not mix
+    x, _, _, rng = op_inputs("pool_bins", 1)
+    x = x[:, :, :3, :3].copy()
+    g_short = rng.normal(size=(2, 3, sum(s * s for s in BINS_SHORT), 1))
+    res["bins_short"] = _run_op(x, spatial.Rows(((0, 2), (2, 3)), 3), lambda t: (
+        torch.cat([p.flatten(2) for p in spatial.adaptive_avg_pool_multi(t, BINS_SHORT)],
+                  2).unsqueeze(-1), spatial.REPLICATED), lambda shape: g_short * part)
+    for name in BAND_OPS:
+        x, extra, rng = band_op_inputs(name)
+        module = band_op_module(name)
+        params = list(module.parameters()) if module is not None else []
+        if module is not None:
+            convert_global_bn(module)
+            spatial.shard_windows(module)
+
+        def band_fn(t, name=name, module=module, extra=extra):
+            y = band_op_apply(name, t, module, True, extra)
+            return y, spatial.rows_of(y)
+
+        if name == "image_pool":  # replicated: each model rank carries a part
+            g_img = rng.normal(size=(2, 3, 1, 1))
+            res[name] = _run_op(x, rows, band_fn, lambda shape, g=g_img: g * part)
+        else:
+            res[name] = _run_op(x, rows, band_fn, lambda shape, rng=rng: rng.normal(
+                size=shape), params)
     save(out, "ops", res)
+
+
+# the ops of this slice's models on the 13-row map: depthwise convs, the
+# DenseNet's transition and stem pools, ASPP's image pool, the DUC's pixel
+# shuffle, global-row crops (from row 0 with rank 1's band cut short, as
+# DeepLab_DUC_HDC's; and shifted, as SegResNet's centre crop), SegNet's and
+# SegResNet's argmax pool and unpool pairs, and two narrow Xception blocks
+# (a strided one and a dilated one)
+BAND_OPS = ["depthwise-k3-d1-s1", "depthwise-k3-d2-s1", "depthwise-k3-d1-s2", "avg_pool",
+            "module_max_pool", "image_pool", "pixel_shuffle", "crop_top", "crop_shift",
+            "argmax_pool", "argmax_pool_flat", "xception"]
+# the crops: (top, left, rows, columns, the target's bands); both cut
+# columns too, as the models' crops do (the layouts are kept by local shape)
+CROPS = {"crop_top": (0, 0, 12, 10, ((0, 6), (6, 12))),
+         "crop_shift": (2, 1, 9, 8, ((0, 5), (5, 9)))}
+
+
+def band_op_inputs(name):
+    """(x, the argmax pairs' factors for the pooled values or None, the
+    generator) of band op ``name``. SegResNet's pair: values on
+    a half grid, so windows tie, and row 5 (rank 0's) the maximum of the
+    windows of pooled rows 2 (rank 0's) and 3 (rank 1's), so an index of
+    rank 1 names a row that rank 0 owns and the two ranks' indices repeat
+    there; its canvas (14 x 12, the pool's input 11 wide) puts those
+    writes in rank 0's canvas rows."""
+    rng = np.random.default_rng(500 + BAND_OPS.index(name))
+    channels = 8 if name in ("pixel_shuffle", "xception") else 3
+    x = rng.normal(size=(2, channels, OP_H, OP_W))
+    if name == "argmax_pool_flat":
+        x = np.round(x * 2) / 2
+        x[:, :, 5, :] = 10.0
+    if not name.startswith("argmax"):
+        return x, None, rng
+    rows = -(-OP_H // 2) if name == "argmax_pool" else (OP_H - 1) // 2 + 1
+    cols = -(-OP_W // 2) if name == "argmax_pool" else (OP_W - 1) // 2 + 1
+    return x, rng.normal(size=(2, channels, rows, cols)), rng
+
+
+def band_op_module(name):
+    """Band op ``name``'s module (float64), built from a fixed seed; None
+    for the functional ops."""
+    from segtpu_torch.backbones.xception import XceptionBlock
+
+    torch.manual_seed(9)
+    if name.startswith("depthwise"):
+        k, d, s = (int(part[1:]) for part in name.split("-")[1:])
+        return nn.Conv2d(3, 3, k, s, d * (k - 1) // 2, d, groups=3).double()
+    if name == "avg_pool":
+        return nn.AvgPool2d(2, 2)
+    if name == "module_max_pool":
+        return nn.MaxPool2d(3, 2, 1)
+    if name == "xception":
+        return nn.Sequential(XceptionBlock(8, 16, stride=2),
+                             XceptionBlock(16, 16, dilation=2)).double()
+    return None
+
+
+def band_op_apply(name, t, module, sharded, extra=None):
+    """Band op ``name`` on ``t`` (this rank's rows with ``sharded``, else
+    the whole map); the argmax pairs unpool the pooled values times
+    ``extra``."""
+    from segtpu_torch.ops import pooling, shape
+
+    if module is not None:
+        return module(t)
+    if name == "image_pool":
+        return (spatial.image_mean if sharded else pooling.image_mean)(t)
+    if name == "pixel_shuffle":
+        return (spatial.pixel_shuffle if sharded else torch.nn.functional.pixel_shuffle)(t, 2)
+    if name in CROPS:
+        top, left, n, cols, bounds = CROPS[name]
+        if not sharded:
+            return shape.crop(t, top, left, (n, cols))
+        dst = spatial.Rows(bounds, n)
+        lo, hi = dst.mine
+        spatial.register(torch.empty(0, 0, hi - lo, cols), dst)
+        return spatial.crop(t, top, left, (hi - lo, cols))
+    scale = torch.from_numpy(extra)
+    if name == "argmax_pool":
+        pool, unpool = ((spatial.max_pool_argmax, spatial.max_unpool) if sharded else
+                        (pooling.max_pool_argmax, pooling.max_unpool))
+        y, idx = pool(t)
+        if sharded:
+            scale = band(scale, spatial.rows_of(y).bounds, 2)
+        return unpool(y * scale, idx, t.shape[-2:])
+    pool, unpool = ((spatial.max_pool_argmax_flat, spatial.max_unpool_flat) if sharded else
+                    (pooling.max_pool_argmax_flat, pooling.max_unpool_flat))
+    y, idx = pool(t)
+    if sharded:
+        scale = band(scale, spatial.rows_of(y).bounds, 2)
+    return unpool(y * scale, idx, (2 * y.shape[-2], 2 * y.shape[-1]))
 
 
 TP_CONVS = ("depthwise", "transposed", "plain")
@@ -348,10 +488,11 @@ def case_losses(out):
     save(out, "losses", res)
 
 
-def _train(model, batches, rows_of_batch=None, eval_batch=None):
+def _train(model, batches, rows_of_batch=None, eval_batch=None, keep=(0,)):
     """SGD steps of ``model`` (already sharded) on its part of each global
-    batch: (the losses, gathered snapshots after steps 1 and the last, the
-    rank spread after each step, eval loss and stats)."""
+    batch: (the losses, gathered snapshots after steps 1 and the last on the
+    ranks of ``keep``, the rank spread after each step, eval loss and
+    stats)."""
     opt, scheds = make_optimizer(model, **SGD)
     state = TrainState(model, opt, scheds)
     state.model_axis()
@@ -368,7 +509,7 @@ def _train(model, batches, rows_of_batch=None, eval_batch=None):
         losses_.append(float(loss))
         sd, _ = gathered(model)
         spreads.append(rank_spread(sd))
-        if mesh.is_main() and i + 1 in (1, len(batches)):
+        if mesh.rank() in keep and i + 1 in (1, len(batches)):
             snaps[i + 1] = (loss.numpy(), sd)
     res = {"losses": losses_, "snaps": snaps, "spread": spreads}
     if eval_batch is not None:
@@ -400,26 +541,149 @@ def case_tp_step(out):
     save(out, "tp_step", res)
 
 
+def one_process(name, batches, eval_batch=None):
+    """The port as one process on the whole batches (plain BN, the local
+    CE, no collective and no global state, so that it can run in a thread
+    beside the spatial steps): ``{step: (loss, state)}`` at the start and
+    after steps 1 and the last, the eval step's loss and seg stats after
+    them, and the probed map's height (PROBES). The step's and the eval
+    step's bodies (``core/steps.py``) without their layouts' scope."""
+    from segtpu_torch.core.steps import _forward_loss, prep_images
+    from segtpu_torch.metrics import seg_stats_from_logits
+
+    model = spatial_model(name)
+    heights = []
+    model.get_submodule(PROBES[name][0]).register_forward_hook(
+        lambda m, i, o: heights.append(o.shape[2]))
+    opt, scheds = make_optimizer(model, **SGD)
+    state = TrainState(model, opt, scheds)
+    snaps = {0: (None, {k: v.clone() for k, v in model.state_dict().items()})}
+    for i, (imgs, labels) in enumerate(batches):
+        model.train()
+        x = prep_images(torch.from_numpy(imgs), None, torch.float64)
+        loss, _ = _forward_loss(model, x, torch.from_numpy(labels), dw.local_cross_entropy,
+                                255, 0.4, torch.float64)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        if i + 1 in (1, len(batches)):
+            snaps[i + 1] = (loss.detach().numpy(),
+                            {k: v.clone() for k, v in model.state_dict().items()})
+    ref = {"snaps": snaps, "probe_rows": heights[0]}
+    if eval_batch is not None:
+        model.eval()
+        imgs, labels = (torch.from_numpy(a) for a in eval_batch)
+        with torch.no_grad():
+            loss, logits = _forward_loss(model, prep_images(imgs, None, torch.float64), labels,
+                                         dw.local_cross_entropy, 255, 0.0, torch.float64)
+        ref["eval"] = (float(loss), [t.clone() for t in seg_stats_from_logits(logits, labels)])
+    return ref
+
+
+def beside(fn, *args):
+    """``fn(*args)`` in a thread; returns a function that joins it and
+    gives its result (or raises what it raised)."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # raised by the join
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return join
+
+
+# a tensor is held relative to the larger of its largest value and this:
+# where a bias is followed by a BN (SegNet's convs, DeepLab_DUC_HDC's
+# classifier), its gradient is 0 in exact arithmetic and its value float64
+# rounding noise, 1e-19 to 1e-18
+VALUE_FLOOR = 1e-9
+
+
+def compare_states(snaps, ref):
+    """Each of ``ref``'s steps after the start against ``snaps``: (the
+    loss's relative error, the largest error of a floating tensor relative
+    to the larger of its largest value and VALUE_FLOOR, that tensor's name,
+    whether every integer tensor is equal, the change since the start of
+    all floating tensors against ``ref``'s, relative L2)."""
+    out = {}
+    start = ref["snaps"][0][1]
+    for n, (ref_loss, ref_sd) in ref["snaps"].items():
+        if not n:
+            continue
+        loss, sd = snaps[n]
+        worst, worst_key, ints, diff, norm = 0.0, None, True, 0.0, 0.0
+        for k, v in ref_sd.items():
+            if v.is_floating_point():
+                err = float((sd[k] - v).abs().max()) / max(float(v.abs().max()), VALUE_FLOOR)
+                if err >= worst:
+                    worst, worst_key = err, k
+                diff += float((sd[k] - v).square().sum())
+                norm += float((v - start[k]).square().sum())
+            else:
+                ints = ints and torch.equal(sd[k], v)
+        out[n] = (abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)), worst,
+                  worst_key, ints, (diff / max(norm, 1e-300)) ** 0.5)
+    return out
+
+
 def case_spatial(out):
-    """PSPNet-R18 and UNet under spatial sharding (and TP, as segtpu's
-    trainer sets both), float64, 3 SGD steps on a global batch of 4, then
-    an eval step; each rank's activation heights."""
+    """Each model of SPATIAL_CASES under spatial sharding (and TP, as
+    segtpu's trainer sets both), float64, 3 SGD steps on a global batch of
+    2, then an eval step; each rank's activation heights. Rank ``i % WORLD``
+    also runs case i as one process on the whole batches, in a thread, and
+    compares the two (what it keeps is the comparison); rank 0 writes the
+    gathered states of the cases SEG_CASES holds against segtpu to a file a
+    case."""
     mesh.set_model_axis(MP, spatial=True)
     res = {}
-    for name, hw in SPATIAL_CASES:
+    for i, (name, hw) in enumerate(SPATIAL_CASES):
+        data = spatial_batches(hw)
+        judge = i % WORLD
+        ref = beside(one_process, name, data[:-1], data[-1]) if mesh.rank() == judge else None
         model = spatial_model(name)
         convert_global_bn(model)
         tensor_parallel.shard_model(model)
         heights = []
-        probe = model.layer4 if name == "PSPNet" else model.middle_conv
+        probe = model.get_submodule(PROBES[name][0])
         handle = probe.register_forward_hook(lambda m, i, o: heights.append(o.shape[2]))
         stride = spatial.check_model(model)
-        data = spatial_batches(hw)
-        got = _train(model, data[:-1], lambda h: spatial.split(h, stride, MP), data[-1])
+        got = _train(model, data[:-1], lambda h: spatial.split(h, stride, MP), data[-1],
+                     keep=(0, judge))
         handle.remove()
         got["heights"] = (heights[0], got.pop("logits_h"))
         got["rows"] = spatial.split(hw, stride, MP)
+        if ref is not None:
+            ref = ref()
+            got["one_process"] = {"steps": compare_states(got["snaps"], ref),
+                                  "eval": ref["eval"], "probe_rows": ref["probe_rows"]}
+        if mesh.rank() == 0 and (name, hw) in SEG_CASES:
+            torch.save(got["snaps"], os.path.join(out, f"spatial-snaps-{name}-{hw}.pt"))
+        del got["snaps"], ref, model
         res[(name, hw)] = got
+    # remat_backbone against one process without it, one step (rank 0)
+    name, hw = REMAT_CASE
+    data = spatial_batches(hw)[:1]
+    ref = beside(one_process, name, data) if mesh.is_main() else None
+    model = spatial_model(name, remat_backbone=True)
+    convert_global_bn(model)
+    tensor_parallel.shard_model(model)
+    stride = spatial.check_model(model)
+    got = _train(model, data, lambda h: spatial.split(h, stride, MP))
+    if ref is not None:
+        got["one_process"] = compare_states(got["snaps"], ref())
+    del got["snaps"]
+    res["remat"] = got
     save(out, "spatial", res)
 
 
