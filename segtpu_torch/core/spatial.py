@@ -7,31 +7,38 @@ holds a band of rows of the same images, and every op whose window
 crosses H is written out:
 
 * :func:`split` puts the band boundaries at multiples of the model's total
-  stride (``spatial_stride``: 8 for PSPNet, PSPDenseNet and
-  DeepLab_DUC_HDC, 16 for UNet, ``output_stride`` for UperNet and DeepLab,
-  32 for SegNet and SegResNet), so every strided window and every
-  ceil-mode pool starts on a boundary; the smallest map's rows are shared
-  as evenly as they go, the first ranks taking the extra row, and the last
-  rank takes the remainder of the input. PSPNet at 769 over 2 ranks:
+  stride (``spatial_stride``: 8 for PSPNet, PSPDenseNet, DeepLab_DUC_HDC,
+  UNetResnet and ENet, 16 for UNet, ``output_stride`` for UperNet and
+  DeepLab, 32 for SegNet, SegResNet, GCN and FCN8), so every strided
+  window and every ceil-mode pool starts on a boundary; the smallest map's
+  rows are shared as evenly as they go, the first ranks taking the extra
+  row, and the last rank takes the remainder of the input. PSPNet at 769 over 2 ranks:
   392/377 input rows, 196/189 after the stem, 98/95 after the pool, 49/48
   in the feature map.
 * Convs and pools with a window over H (:class:`HaloConv2d`,
   :func:`max_pool`, :func:`avg_pool`, :class:`HaloStemConv2d`, SegResNet's
   :func:`max_pool_argmax_flat`) receive the rows they read from the ranks
   that own them (:func:`fetch_rows`); zero (or, for a max pool, -inf)
-  padding applies only at the image's global top and bottom. The backward
-  returns each halo row's gradient to its owner.
+  padding applies only at the image's global top and bottom (FCN8's first
+  conv, padded by 100, leaves all 198 added rows to the last rank). The
+  backward returns each halo row's gradient to its owner.
+* Transposed convs (:func:`conv_transpose2d`; FCN8's fixed upsamplers,
+  :class:`HaloFixedUpsample`) have their halo on the output side: each
+  band's windows reach rows that other ranks own, and those rows are
+  summed onto their owners (:class:`_SumOnOwners`, :class:`_Fetch` the
+  other way round); the backward fetches their gradients.
 * :func:`resize_bilinear` works from the global source and target sizes,
   each rank computing its own output rows from its source rows and a
   halo (or from a replicated source); :func:`adaptive_avg_pool_multi`
   sums each bin's partial sums over the model group, so its bins are
   replicated on the model ranks, as is ASPP's :func:`image_mean`.
 * :func:`crop` cuts global rows into a registered layout (the model's
-  offsets from :func:`global_hw`), and :func:`pixel_shuffle` multiplies
-  each band's rows; SegNet's argmax pools and unpools
-  (:func:`max_pool_argmax`, :func:`max_unpool`) keep to their bands, and
-  SegResNet's :func:`max_unpool_flat` sends each write to the rank that
-  owns its canvas row.
+  offsets from :func:`global_hw`), :func:`pad_or_crop` moves the image's
+  rows down or up onto one (ENet's and GCN's top-left alignment), and
+  :func:`pixel_shuffle` multiplies each band's rows; SegNet's and ENet's
+  argmax pools and unpools (:func:`max_pool_argmax`, :func:`max_unpool`)
+  keep to their bands, and SegResNet's :func:`max_unpool_flat` sends each
+  write to the rank that owns its canvas row.
 
 Every exchange is an all-reduce of a buffer that is zero outside what each
 rank contributes (gloo carries all-reduces of CUDA tensors; it is the
@@ -47,9 +54,10 @@ it. An op that meets a map with no layout raises.
 and each pool module takes its halo class (same parameters and keys), and
 each module that calls an op over H through an attribute (``HALO_OPS``:
 ``_max_pool``, ``_resize``, ``_pool_bins``, ``_image_pool``, ``_shuffle``,
-``_crop``, ``_hw``, ``_pool_argmax``, ``_unpool``, ``_pool_argmax_flat``,
-``_unpool_flat``) gets this module's function there. ``ops/`` keeps one
-path, and each form here runs the plain op outside a sharded forward.
+``_crop``, ``_pad_or_crop``, ``_hw``, ``_pool_argmax``, ``_unpool``,
+``_pool_argmax_flat``, ``_unpool_flat``) gets this module's function
+there. ``ops/`` keeps one path, and each form here runs the plain op
+outside a sharded forward.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.core import mesh
+from segtpu_torch.models.fcn import FixedUpsample
 from segtpu_torch.ops import pooling
 from segtpu_torch.ops import resize as plain_resize
 from segtpu_torch.ops import shape as plain_shape
@@ -179,62 +188,90 @@ def _overlap(g0: int, n: int, lo: int, hi: int):
     return (s0, s1) if s1 > s0 else None
 
 
+def _gather(x, rows, need, segs, total, group):
+    """Rows ``need[me]`` of the global map (clipped to it) on each rank,
+    from the ranks that own them (``x``: this rank's rows of ``rows``)."""
+    me = mesh.model_index()
+    lo, hi = rows.bounds[me]
+    buf = None
+    if total:
+        buf = x.new_zeros(x.shape[:2] + (total,) + x.shape[3:])
+        for t, g0, n, off in segs:
+            ov = _overlap(g0, n, lo, hi)
+            if ov is not None:
+                buf[:, :, off + ov[0] - g0:off + ov[1] - g0] = x[:, :, ov[0] - lo:ov[1] - lo]
+        dist.all_reduce(buf, group=group)
+    a, b = need[me]
+    parts = [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 < lo]
+    own0, own1 = max(a, lo), min(b, hi)
+    if own1 > own0:
+        parts.append(x[:, :, own0 - lo:own1 - lo])
+    parts += [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 >= hi]
+    if not parts:  # every asked-for row lies outside the map
+        return x.new_zeros(x.shape[:2] + (0,) + x.shape[3:])
+    return torch.cat(parts, dim=2) if len(parts) > 1 else parts[0].clone()
+
+
+def _scatter_add(g, rows, need, segs, total, group):
+    """:func:`_gather`'s adjoint: each rank's rows ``need[me]`` (clipped to
+    the map) of ``g`` summed onto the ranks that own them; this rank's rows
+    of ``rows``."""
+    me = mesh.model_index()
+    lo, hi = rows.bounds[me]
+    a, b = need[me]
+    out = g.new_zeros(g.shape[:2] + (hi - lo,) + g.shape[3:])
+    at = 0
+    buf = g.new_zeros(g.shape[:2] + (total,) + g.shape[3:]) if total else None
+    for t, g0, n, off in segs:
+        if t == me and g0 < lo:
+            buf[:, :, off:off + n] = g[:, :, at:at + n]
+            at += n
+    own0, own1 = max(a, lo), min(b, hi)
+    if own1 > own0:
+        out[:, :, own0 - lo:own1 - lo] = g[:, :, at:at + own1 - own0]
+        at += own1 - own0
+    for t, g0, n, off in segs:
+        if t == me and g0 >= hi:
+            buf[:, :, off:off + n] = g[:, :, at:at + n]
+            at += n
+    if total:
+        dist.all_reduce(buf, group=group)
+        for t, g0, n, off in segs:
+            ov = _overlap(g0, n, lo, hi)
+            if ov is not None:
+                out[:, :, ov[0] - lo:ov[1] - lo] += buf[:, :, off + ov[0] - g0:off + ov[1] - g0]
+    return out
+
+
 class _Fetch(torch.autograd.Function):
     """Rows ``[a, b)`` of the global map (clipped to it) on each rank, from
-    the ranks that own them; backward: each row's gradient summed back on
-    its owner."""
+    the ranks that own them (:func:`_gather`); backward: each row's
+    gradient summed back on its owner (:func:`_scatter_add`)."""
 
     @staticmethod
     def forward(ctx, x, rows, need, group):
-        me = mesh.model_index()
-        lo, hi = rows.bounds[me]
-        segs, total = _segments(rows, need)
-        ctx.rows, ctx.need, ctx.group, ctx.segs, ctx.total = rows, need, group, segs, total
-        ctx.shape = x.shape
-        buf = None
-        if total:
-            buf = x.new_zeros(x.shape[:2] + (total,) + x.shape[3:])
-            for t, g0, n, off in segs:
-                ov = _overlap(g0, n, lo, hi)
-                if ov is not None:
-                    buf[:, :, off + ov[0] - g0:off + ov[1] - g0] = x[:, :, ov[0] - lo:ov[1] - lo]
-            dist.all_reduce(buf, group=group)
-        a, b = need[me]
-        parts = [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 < lo]
-        own0, own1 = max(a, lo), min(b, hi)
-        if own1 > own0:
-            parts.append(x[:, :, own0 - lo:own1 - lo])
-        parts += [buf[:, :, off:off + n] for t, g0, n, off in segs if t == me and g0 >= hi]
-        return torch.cat(parts, dim=2) if len(parts) > 1 else parts[0].clone()
+        ctx.args = (rows, need, *_segments(rows, need), group)
+        return _gather(x, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
-        me = mesh.model_index()
-        rows, need, segs = ctx.rows, ctx.need, ctx.segs
-        lo, hi = rows.bounds[me]
-        a, b = need[me]
-        dx = g.new_zeros(ctx.shape)
-        at = 0
-        buf = g.new_zeros(g.shape[:2] + (ctx.total,) + g.shape[3:]) if ctx.total else None
-        for t, g0, n, off in segs:
-            if t == me and g0 < lo:
-                buf[:, :, off:off + n] = g[:, :, at:at + n]
-                at += n
-        own0, own1 = max(a, lo), min(b, hi)
-        if own1 > own0:
-            dx[:, :, own0 - lo:own1 - lo] = g[:, :, at:at + own1 - own0]
-            at += own1 - own0
-        for t, g0, n, off in segs:
-            if t == me and g0 >= hi:
-                buf[:, :, off:off + n] = g[:, :, at:at + n]
-                at += n
-        if ctx.total:
-            dist.all_reduce(buf, group=ctx.group)
-            for t, g0, n, off in segs:
-                ov = _overlap(g0, n, lo, hi)
-                if ov is not None:
-                    dx[:, :, ov[0] - lo:ov[1] - lo] += buf[:, :, off + ov[0] - g0:off + ov[1] - g0]
-        return dx, None, None, None
+        return _scatter_add(g, *ctx.args), None, None, None
+
+
+class _SumOnOwners(torch.autograd.Function):
+    """:class:`_Fetch` the other way round: each rank's rows ``[a, b)`` of
+    the global map (clipped to it) summed onto the ranks that own them, an
+    output-side halo; backward: each row's gradient fetched from its
+    owner."""
+
+    @staticmethod
+    def forward(ctx, y, rows, need, group):
+        ctx.args = (rows, need, *_segments(rows, need), group)
+        return _scatter_add(y, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
 
 
 def fetch_rows(x: torch.Tensor, rows: Rows, need: Sequence[Tuple[int, int]]):
@@ -245,7 +282,7 @@ def fetch_rows(x: torch.Tensor, rows: Rows, need: Sequence[Tuple[int, int]]):
     it (the caller's padding)."""
     a, b = need[mesh.model_index()]
     ext = _Fetch.apply(x, rows, tuple(need), mesh.model_group())
-    return ext, max(0, -a), max(0, b - rows.size)
+    return ext, max(0, min(b, 0) - a), max(0, b - max(a, rows.size))
 
 
 def _window_rows(rows: Rows, k_eff: int, s: int, p: int, out_size: int):
@@ -309,21 +346,35 @@ def conv2d(x, weight, bias, stride, padding, dilation, groups):
 
 
 def conv_transpose2d(x, weight, bias, stride, padding, output_padding, groups, dilation):
-    """``F.conv_transpose2d`` over a sharded map, for windows that do not
-    overlap in H (kernel = stride, no padding: UNet's up-convs): output rows
-    ``[s*lo, s*hi)``."""
-    k, s = weight.shape[2], stride[0]
-    if k != s or padding[0] or dilation[0] != 1:
-        raise NotImplementedError(f"spatial: transposed conv k {k}, stride {s}, padding "
-                                  f"{padding[0]}: only k = stride without padding is "
-                                  f"sharded over H (ROADMAP)")
+    """``F.conv_transpose2d`` over a sharded map, for any kernel, stride,
+    padding and output padding over H: the adjoint of the halo fetch. Each
+    rank runs the plain transposed conv on its band ``[lo, hi)`` without H
+    padding and without bias, which gives global rows ``[s*lo - p, s*(hi -
+    1) + k_eff - p)``; the rows above the image and past its ``(n - 1) s -
+    2p + k_eff + op`` are cut, the rows another rank owns are summed onto
+    their owner (:class:`_SumOnOwners`), and the bias is added once, after
+    the sum. The output padding's rows take whatever falls there, as in
+    torch. Output rows ``[s*lo, s*hi)`` a rank, the last rank's to the
+    end."""
     rows = rows_of(x)
+    s, p = stride[0], padding[0]
+    k_eff = dilation[0] * (weight.shape[2] - 1) + 1
+    size = (rows.size - 1) * s - 2 * p + k_eff + output_padding[0]
     last = len(rows.bounds) - 1
-    out_rows = Rows(tuple((s * lo, s * hi + (output_padding[0] if t == last else 0))
-                          for t, (lo, hi) in enumerate(rows.bounds)),
-                    s * rows.size + output_padding[0])
-    op = (output_padding[0] if mesh.model_index() == last else 0, output_padding[1])
-    y = F.conv_transpose2d(x, weight, bias, stride, padding, op, groups, dilation)
+    out_rows = Rows(tuple((s * lo, size if t == last else s * hi)
+                          for t, (lo, hi) in enumerate(rows.bounds)), size)
+    if out_rows.count(last) <= 0:
+        raise ValueError(f"spatial: the last rank holds no row of a {size}-row transposed "
+                         f"conv output")
+    # the global output rows each band's windows reach
+    reach = tuple((s * lo - p, s * (hi - 1) + k_eff - p) for lo, hi in rows.bounds)
+    y = F.conv_transpose2d(x, weight, None, (s, stride[1]), (0, padding[1]),
+                           (0, output_padding[1]), groups, dilation)
+    a, b = reach[mesh.model_index()]
+    y = y[:, :, max(0, -a):y.shape[2] - max(0, b - out_rows.size)]
+    y = _SumOnOwners.apply(y, out_rows, reach, mesh.model_group())
+    if bias is not None:
+        y = y + bias.view(1, -1, 1, 1)
     register(y, out_rows)
     return y
 
@@ -348,6 +399,17 @@ class HaloConvTranspose2d(nn.ConvTranspose2d):
             return super().forward(x, output_size)
         return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
                                 self.output_padding, self.groups, self.dilation)
+
+
+class HaloFixedUpsample(FixedUpsample):
+    """FCN8's fixed bilinear upsampler (its class swapped in place: same
+    buffer and keys) over a sharded map (:func:`conv_transpose2d`)."""
+
+    def forward(self, x):
+        if not active():
+            return super().forward(x)
+        s = self.stride
+        return conv_transpose2d(x, self.weight, None, (s, s), (0, 0), (0, 0), 1, (1, 1))
 
 
 class HaloStemConv2d(StemConv2d):
@@ -614,6 +676,30 @@ def crop(x: torch.Tensor, top: int, left: int, size) -> torch.Tensor:
     return y
 
 
+def pad_or_crop(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``ops/shape.py``'s ``pad_or_crop_tl`` over a sharded map: ``h`` x
+    ``w`` is the local size of a map whose layout (of ``n`` global rows) the
+    result takes, and the image's rows move down by ``dh = n -`` the
+    source's rows: each target band ``[lo, hi)`` holds global rows ``[lo -
+    dh, hi - dh)`` of ``x`` from their owners: zeros above global row 0
+    where ``dh`` is positive, the top ``-dh`` rows cut where it is negative
+    (:func:`crop` at ``-dh``). Columns are padded or cut at the left as in
+    the plain op."""
+    if not active():
+        return plain_shape.pad_or_crop_tl(x, h, w)
+    src, dst = rows_of(x), rows_of_size(int(h), int(w))
+    dh = dst.size - src.size
+    y = x
+    if src != dst:
+        ext, top, _ = fetch_rows(x, src, [(lo - dh, hi - dh) for lo, hi in dst.bounds])
+        y = _pad_rows(ext, top, 0)
+    dw = int(w) - x.shape[-1]
+    if dw:
+        y = F.pad(y, (dw, 0))
+    register(y, dst)
+    return y
+
+
 # -- ops in global coordinates ----------------------------------------------------
 
 def _source_rows(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
@@ -720,7 +806,7 @@ def gather_image(t: torch.Tensor, rows: Rows) -> torch.Tensor:
 
 #: the models that set ``spatial_stride``
 SHARDED_MODELS = ("PSPNet", "PSPDenseNet", "UperNet", "DeepLab", "DeepLab_DUC_HDC", "UNet",
-                  "SegNet", "SegResNet")
+                  "UNetResnet", "SegNet", "SegResNet", "ENet", "GCN", "FCN8")
 
 
 def check_model(model: nn.Module) -> int:
@@ -728,21 +814,21 @@ def check_model(model: nn.Module) -> int:
     one raises ``ValueError``: only ``SHARDED_MODELS`` are sharded over H."""
     stride = getattr(model, "spatial_stride", None)
     if stride is None:
-        raise ValueError(f"trainer.spatial: {type(model).__name__} is not sharded over "
-                         f"H yet; {', '.join(SHARDED_MODELS)} are (ROADMAP)")
+        raise ValueError(f"trainer.spatial: {type(model).__name__} has no spatial_stride: "
+                         f"only {', '.join(SHARDED_MODELS)} are sharded over H")
     return stride
 
 
 #: the halo class of each conv class with a window over H
 HALO_CLASSES = {nn.ConvTranspose2d: HaloConvTranspose2d, StemConv2d: HaloStemConv2d,
                 S2DStemConv2d: HaloS2DStemConv2d, nn.MaxPool2d: HaloMaxPool2d,
-                nn.AvgPool2d: HaloAvgPool2d}
+                nn.AvgPool2d: HaloAvgPool2d, FixedUpsample: HaloFixedUpsample}
 #: the sharded form of each op a module calls through the attribute
 HALO_OPS = {"_max_pool": max_pool, "_resize": resize_bilinear,
             "_pool_bins": adaptive_avg_pool_multi, "_image_pool": image_mean,
-            "_shuffle": pixel_shuffle, "_crop": crop, "_hw": global_hw, "_pool_argmax": max_pool_argmax,
-            "_unpool": max_unpool, "_pool_argmax_flat": max_pool_argmax_flat,
-            "_unpool_flat": max_unpool_flat}
+            "_shuffle": pixel_shuffle, "_crop": crop, "_pad_or_crop": pad_or_crop,
+            "_hw": global_hw, "_pool_argmax": max_pool_argmax, "_unpool": max_unpool,
+            "_pool_argmax_flat": max_pool_argmax_flat, "_unpool_flat": max_unpool_flat}
 
 
 def shard_windows(model: nn.Module) -> int:

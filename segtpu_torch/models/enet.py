@@ -13,6 +13,10 @@ widens. Where the branches' sizes differ (odd inputs), the main branch is
 padded or cropped at the top and left, as the original's ``F.pad``. The
 last transposed conv is cropped back to the input size.
 
+ENet can be sharded over H (``core/spatial.py``; total stride 8): its
+pools, its transposed convs (3x3/2, whose windows overlap in H), the
+pad-or-crop onto the identity and the last crop then work in global rows.
+
 Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``.
 Parameter names follow the original (``initial.{conv,bn,prelu}``,
 ``bottleneckNM.*`` with its ``spatil_conv`` and the asymmetric pair at
@@ -32,10 +36,13 @@ from torch import nn
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transpose2d,
                                     init_parameters, kaiming_normal_init)
 from segtpu_torch.ops.pooling import max_pool, max_pool_argmax, max_unpool
-from segtpu_torch.ops.shape import pad_or_crop_tl
+from segtpu_torch.ops.shape import crop, pad_or_crop_tl
 
 
 class InitialBlock(nn.Module):
+    #: swapped per instance by core/spatial.py's shard_windows
+    _max_pool = staticmethod(max_pool)
+
     def __init__(self, in_ch: int = 3):
         super().__init__()
         self.conv = conv2d(in_ch, 16 - in_ch, 3, 2, 1, bias=True,
@@ -44,7 +51,7 @@ class InitialBlock(nn.Module):
         self.prelu = nn.PReLU(16, init=0.25)
 
     def forward(self, x):
-        y = torch.cat([max_pool(x, 2, 2, ceil_mode=True), self.conv(x)], dim=1)
+        y = torch.cat([self._max_pool(x, 2, 2, ceil_mode=True), self.conv(x)], dim=1)
         return self.prelu(self.bn(y))
 
 
@@ -53,6 +60,11 @@ def _act(use_prelu: bool) -> nn.Module:
 
 
 class Bottleneck(nn.Module):
+    #: swapped per instance by core/spatial.py's shard_windows
+    _pool_argmax = staticmethod(max_pool_argmax)
+    _unpool = staticmethod(max_unpool)
+    _pad_or_crop = staticmethod(pad_or_crop_tl)
+
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, dilation: int = 1,
                  downsample: bool = False, upsample: bool = False,
                  asymmetric: bool = False, p_drop: float = 0.1,
@@ -85,15 +97,15 @@ class Bottleneck(nn.Module):
     def forward(self, x, indices=None, output_size=None):
         identity, idx = x, None
         if self.upsample:
-            identity = max_unpool(self.bn_up(self.spatil_conv(x)), indices, output_size)
+            identity = self._unpool(self.bn_up(self.spatil_conv(x)), indices, output_size)
         elif self.downsample:
-            identity, idx = max_pool_argmax(x)
+            identity, idx = self._pool_argmax(x)
         if self.pad_channels:
             identity = F.pad(identity, (0, 0, 0, 0, 0, self.pad_channels))
         y = self.prelu1(self.bn1(self.conv1(x)))
         y = self.prelu2(self.bn2(self.conv2(y)))
         y = self.regularizer(self.prelu3(self.bn3(self.conv3(y))))
-        y = pad_or_crop_tl(y, identity.shape[-2], identity.shape[-1])
+        y = self._pad_or_crop(y, identity.shape[-2], identity.shape[-1])
         y = self.prelu_out(y + identity)
         return (y, idx) if self.downsample else y
 
@@ -106,6 +118,10 @@ _STAGE = (dict(), dict(dilation=2), dict(asymmetric=True), dict(dilation=4), dic
 class ENet(FreezableBN):
     #: ENet has no backbone: every parameter is the decoder's
     backbone_modules = ()
+    #: the stride of the smallest map, for sharding H (core/spatial.py)
+    spatial_stride = 8
+    #: swapped per instance by core/spatial.py's shard_windows
+    _crop = staticmethod(crop)
 
     def __init__(self, num_classes: int, in_channels: int = 3, freeze_bn: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -147,4 +163,4 @@ class ENet(FreezableBN):
         y = self.bottleneck51(y)
         # the transposed conv gives one row or column too many at odd sizes:
         # segtpu keeps the top-left h x w
-        return {"out": self.fullconv(y)[..., :h, :w]}
+        return {"out": self._crop(self.fullconv(y), 0, 0, (h, w))}

@@ -9,6 +9,14 @@ diagonal across classes), between which the 1x1-adjusted ``0.01 * pool4``
 and ``1e-4 * pool3`` are added, cropped at offsets 5 and 9; the result is
 cropped at offset 31 back to the input size.
 
+FCN8 can be sharded over H (``core/spatial.py``; total stride 32): the
+first conv's 100 rows of padding lie at the image's global top and bottom,
+so the first rank's output rows read the top padding and the last rank
+holds all the 198 rows the padding adds; the upsamplers sum their
+overlapping windows over the band boundaries, and the three crops cut
+global rows into the layout of the map they are added to (or of the
+input).
+
 The upsamplers' kernels are buffers: they are in the ``state_dict`` under
 the original's keys (``up_output``, ``up_pool4_out``, ``up_final``), and in
 no parameter group, so no step changes them. segtpu applies them as fixed
@@ -37,6 +45,7 @@ from torch import nn
 
 from segtpu_torch.backbones.vgg import VGG16Features
 from segtpu_torch.nn.layers import bilinear_kernel, conv2d, init_parameters
+from segtpu_torch.ops.shape import crop
 from segtpu_torch.pretrained import Layout
 
 #: FC6's and FC7's width
@@ -60,6 +69,11 @@ class FixedUpsample(nn.Module):
 class FCN8(nn.Module):
     #: VGG, FC6, FC7 and the score conv train at lr/10, as in segtpu's code
     backbone_modules = ("pool3", "pool4", "pool5", "output")
+    #: the stride of the smallest map (pool5), for sharding H
+    #: (core/spatial.py)
+    spatial_stride = 32
+    #: swapped per instance by core/spatial.py's shard_windows
+    _crop = staticmethod(crop)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  pretrained: Union[bool, str] = False,
@@ -91,10 +105,10 @@ class FCN8(nn.Module):
         pool4 = self.pool4(pool3)
         up = self.up_output(self.output(self.pool5(pool4)))
         adj4 = self.adj_pool4(0.01 * pool4)
-        up = self.up_pool4_out(adj4[..., 5:5 + up.shape[-2], 5:5 + up.shape[-1]] + up)
+        up = self.up_pool4_out(self._crop(adj4, 5, 5, up.shape[-2:]) + up)
         adj3 = self.adj_pool3(0.0001 * pool3)
-        up = self.up_final(adj3[..., 9:9 + up.shape[-2], 9:9 + up.shape[-1]] + up)
-        return {"out": up[..., 31:31 + h, 31:31 + w]}
+        up = self.up_final(self._crop(adj3, 9, 9, up.shape[-2:]) + up)
+        return {"out": self._crop(up, 31, 31, (h, w))}
 
     def pretrained_layout(self) -> Layout:
         """torchvision's VGG-16: ``features`` as the three slices keep it,

@@ -9,6 +9,9 @@ align-corners bilinear resizes or, with ``use_deconv``, by 3x3/2 transposed
 convs whose outputs are padded or cropped at the top and left onto the
 next map (segtpu adds the last of these alignments, onto the layer1 map,
 which the original lacks). A biased 1x1 ``final_conv`` gives the logits.
+GCN can be sharded over H (``core/spatial.py``; total stride 32 with
+either backbone): its resizes, its transposed convs (3x3/2, overlapping in
+H) and their pad-or-crops then work in global rows.
 
 The backbone is torchvision's ResNet at output stride 32 (``backbone.
 initial.{0,1}``, ``backbone.layerX``), or with ``use_resnet_gcn`` its stem
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 
 from segtpu_torch.backbones.resnet import ResNetFeatures, run_features
+from segtpu_torch.ops.pooling import max_pool
 from segtpu_torch.nn.layers import (FreezableBN, batch_norm, conv2d, conv_transpose2d,
                                     init_parameters, kaiming_normal_init,
                                     torch_conv_bias_init, zeros_init)
@@ -126,6 +130,9 @@ class ResnetGCN(nn.Module):
     1024 channels (k 5, 85 wide) in layer3 and six at 2048 (k 7, 128 wide)
     in layer4, each layer's first at stride 2."""
 
+    #: the stem pool, which core/spatial.py's shard_windows swaps per instance
+    _max_pool = staticmethod(max_pool)
+
     def __init__(self, arch: str = "resnet50", in_channels: int = 3):
         super().__init__()
         feats = ResNetFeatures(arch=arch, style="torchvision", in_channels=in_channels)
@@ -140,12 +147,18 @@ class ResnetGCN(nn.Module):
 
     def forward(self, x):
         return run_features(self.initial, [self.layer1, self.layer2, self.layer3,
-                                           self.layer4], x)
+                                           self.layer4], x, self._max_pool)
 
 
 class GCN(FreezableBN):
     #: segtpu's ``backbone`` scope: lr/10
     backbone_modules = ("backbone",)
+    #: the stride of the smallest map (either backbone's), for sharding H
+    #: (core/spatial.py)
+    spatial_stride = 32
+    #: swapped per instance by core/spatial.py's shard_windows
+    _resize = staticmethod(resize_bilinear)
+    _pad_or_crop = staticmethod(pad_or_crop_tl)
 
     def __init__(self, num_classes: int, in_channels: int = 3,
                  pretrained: Union[bool, str] = False,
@@ -182,19 +195,19 @@ class GCN(FreezableBN):
         x1, x2, x3, x4 = (getattr(self, f"br{i + 1}")(getattr(self, f"gcn{i + 1}")(f))
                           for i, f in enumerate(self.backbone(x)))
         if self.use_deconv:
-            x4 = pad_or_crop_tl(self.decon4(x4), *x3.shape[-2:])
-            x3 = pad_or_crop_tl(self.decon3(self.br5(x3 + x4)), *x2.shape[-2:])
-            x2 = pad_or_crop_tl(self.decon2(self.br6(x2 + x3)), *x1.shape[-2:])
+            x4 = self._pad_or_crop(self.decon4(x4), *x3.shape[-2:])
+            x3 = self._pad_or_crop(self.decon3(self.br5(x3 + x4)), *x2.shape[-2:])
+            x2 = self._pad_or_crop(self.decon2(self.br6(x2 + x3)), *x1.shape[-2:])
             x1 = self.decon1(self.br7(x1 + x2))
-            y = pad_or_crop_tl(self.br9(self.decon5(self.br8(x1))), h, w)
+            y = self._pad_or_crop(self.br9(self.decon5(self.br8(x1))), h, w)
         else:
-            x4 = resize_bilinear(x4, x3.shape[-2:], align_corners=True)
-            x3 = resize_bilinear(self.br5(x3 + x4), x2.shape[-2:], align_corners=True)
-            x2 = resize_bilinear(self.br6(x2 + x3), x1.shape[-2:], align_corners=True)
+            x4 = self._resize(x4, x3.shape[-2:], align_corners=True)
+            x3 = self._resize(self.br5(x3 + x4), x2.shape[-2:], align_corners=True)
+            x2 = self._resize(self.br6(x2 + x3), x1.shape[-2:], align_corners=True)
             # segtpu resizes this sum to the stem pool's size, which is
             # layer1's own: the identity
             x1 = self.br7(x1 + x2)
-            y = self.br9(resize_bilinear(self.br8(x1), (h, w), align_corners=True))
+            y = self.br9(self._resize(self.br8(x1), (h, w), align_corners=True))
         return {"out": self.final_conv(y)}
 
     def pretrained_layout(self) -> Layout:

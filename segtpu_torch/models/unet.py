@@ -11,10 +11,11 @@ align-corners resizes onto the skips, a last one onto the input where
 needed, and a bias-free 1x1 ``conv7``; no activation in its decoder, as the
 original.
 
-Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. UNet
-can be sharded over H (``core/spatial.py``; total stride 16): its pools,
-up-convs and resizes then work in global coordinates, and a resize onto a
-skip compares the maps' global sizes.
+Inputs and logits are NCHW; ``forward`` returns ``{"out": logits}``. Both
+can be sharded over H (``core/spatial.py``; total stride 16 for UNet, 8 for
+UNetResnet, whose encoder is dilated past stride 8): their pools, up-convs
+(UNetResnet's overlap in H) and resizes then work in global coordinates,
+and a resize onto a skip compares the maps' global sizes.
 Parameter names follow the original (UNet: ``start_conv``,
 ``down{i}.down_conv``, ``middle_conv``, ``up{i}.{up,up_conv}``,
 ``final_conv``; UNetResnet: ``initial``, ``layerX``, ``conv{1..7}``,
@@ -123,6 +124,12 @@ class UNet(FreezableBN):
 class UNetResnet(FreezableBN):
     #: top-level modules whose parameters train at lr/10
     backbone_modules = ("initial", "layer1", "layer2", "layer3", "layer4")
+    #: the stride of the smallest map (the encoding-style encoder's), for
+    #: sharding H (core/spatial.py)
+    spatial_stride = 8
+    #: swapped per instance by core/spatial.py's shard_windows
+    _max_pool = staticmethod(max_pool)
+    _resize = staticmethod(resize_bilinear)
 
     def __init__(self, num_classes: int, in_channels: int = 3, backbone: str = "resnet50",
                  pretrained: Union[bool, str] = False, freeze_bn: bool = False,
@@ -157,15 +164,16 @@ class UNetResnet(FreezableBN):
 
     def forward(self, x):
         x1, x2, x3, x4 = run_features(self.initial, [self.layer1, self.layer2,
-                                                     self.layer3, self.layer4], x)
+                                                     self.layer3, self.layer4], x,
+                                      self._max_pool)
         y = self.upconv1(self.conv1(x4))
         for conv, upconv, skip in ((self.conv2, self.upconv2, x3),
                                    (self.conv3, self.upconv3, x2),
                                    (self.conv4, self.upconv4, x1)):
-            y = resize_bilinear(y, skip.shape[-2:], align_corners=True)
+            y = self._resize(y, skip.shape[-2:], align_corners=True)
             y = upconv(conv(torch.cat([y, skip], dim=1)))
         y = self.upconv5(self.conv5(y))
-        y = resize_bilinear(y, x.shape[-2:], align_corners=True)
+        y = self._resize(y, x.shape[-2:], align_corners=True)
         return {"out": self.conv7(self.conv6(y))}
 
     def pretrained_layout(self) -> Layout:

@@ -71,7 +71,9 @@ def test_odd_sizes_take_segtpus_pad_and_crop_branches(hw, want, port, monkeypatc
             seen.append((h, w, *x.shape[-2:]))
         return align(x, h, w)
 
-    monkeypatch.setattr(enet, "pad_or_crop_tl", spy)
+    # the model calls the alignment through its attribute (core/spatial.py
+    # swaps it)
+    monkeypatch.setattr(enet.Bottleneck, "_pad_or_crop", staticmethod(spy))
     with torch.no_grad():
         out = port.eval()(torch.zeros(1, 3, hw, hw))["out"]
     assert out.shape == (1, CLASSES, hw, hw)

@@ -20,9 +20,12 @@ run, this process computes segtpu's side. The checks:
   convs, DenseNet's module average and max pools, ASPP's image pool, the
   pixel shuffle, global-row crops, SegNet's and SegResNet's argmax pool
   and unpool pairs (SegResNet's with indices that cross the boundary and
-  repeat there, and tied windows) and two narrow Xception blocks.
-  Column-parallel convs (a depthwise one, a transposed one) under TP alone
-  likewise.
+  repeat there, and tied windows), two narrow Xception blocks and the
+  top-left pad-or-crop a row each way across the boundary; and transposed
+  convs whose windows overlap in H (k 3/s 2/p 1/output padding 1, k 4/s
+  2/p 1, k 4/s 2/p 0, k 16/s 8/p 0; uneven, even and one-row bands), one
+  of them column-parallel. Column-parallel convs (a depthwise one, a
+  transposed one) under TP alone likewise.
 * Collective axes: ``GlobalBatchNorm2d`` under TP takes the data batch's
   count (its unbiased running variance is the whole batch's), under
   spatial sharding the world's, and on replicated maps the data group's;
@@ -36,16 +39,19 @@ run, this process computes segtpu's side. The checks:
 * TP zoo: each of the 12 names takes a TP step (convs of 16 or more
   channels sharded) whose gradients are one process's on the whole batch
   within 1e-8 relative (float64), as in tests/test_torch_distributed.py.
-* Spatial steps: every model ``trainer.spatial`` shards (PSPNet-R18, UNet,
-  UperNet-R18, PSPDenseNet-121, DeepLab-R18, DeepLab_DUC_HDC-R18, SegNet,
-  SegResNet; ``w.SPATIAL_CASES``) at H that split unevenly and evenly,
-  float64, 1 and 3 SGD steps and an eval step (its loss, and its seg stats
-  exactly) against one process (1e-8), and against segtpu's
+* Spatial steps: every zoo name (PSPNet-R18, UNet, UperNet-R18,
+  PSPDenseNet-121, DeepLab-R18, DeepLab_DUC_HDC-R18, SegNet, SegResNet,
+  UNetResnet-R18, ENet, GCN-R18 with ``use_deconv``, FCN8 on narrowed VGG
+  stages and FC layers; ``w.SPATIAL_CASES``) at H that split unevenly and
+  evenly, float64, 1 and 3 SGD steps and an eval step (its loss, and its
+  seg stats exactly) against one process (1e-8), and against segtpu's
   ``make_train_step(spatial=True)`` on the 2 x 2 mesh at a size where
-  segtpu's spatial step agrees with its unsharded one (SEG_SPATIAL); each
-  rank's activations have its band's height; PSPDenseNet's
-  ``remat_backbone`` recomputes on the bands; ``check_model`` names the
-  eight and raises for the other four.
+  segtpu's spatial step agrees with its unsharded one (SEG_SPATIAL; ENet,
+  GCN and FCN8, whose port cases are at odd H, one step at another size,
+  FCN8's FC6 and FC7 4096 wide as segtpu's); each rank's activations have
+  its band's height; PSPDenseNet's ``remat_backbone`` recomputes on the
+  bands; ``check_model`` gives each of the twelve its stride and raises
+  for a model without one.
 * Trainer: segtpu's ``test_trainer_parallelism_from_config`` config
   (UNet, devices 4, model_parallel 2, spatial, remat) against segtpu's
   Trainer: each step's loss within 1e-4 relative, the val metrics within
@@ -68,6 +74,7 @@ import torch.nn.functional as F
 import torch_axis_worker as w
 import torch_dist_worker as dw
 from segtpu import losses as seg_losses
+from segtpu.backbones import vgg as seg_vgg
 from segtpu.core import state as seg_state
 from segtpu.core.mesh import MODEL_AXIS, make_mesh, shard_state, tp_sharding_tree
 from segtpu.core.steps import make_eval_step as seg_make_eval_step
@@ -98,7 +105,10 @@ CONVERT = {"PSPNet": wc.pspnet_state_dict_from_segtpu, "UNet": wc.unet_state_dic
            "DeepLab": wc.deeplab_state_dict_from_segtpu,
            "DeepLab_DUC_HDC": wc.duc_hdc_state_dict_from_segtpu,
            "SegNet": wc.segnet_state_dict_from_segtpu,
-           "SegResNet": wc.segresnet_state_dict_from_segtpu}
+           "SegResNet": wc.segresnet_state_dict_from_segtpu,
+           "UNetResnet": wc.unet_resnet_state_dict_from_segtpu,
+           "ENet": wc.enet_state_dict_from_segtpu, "GCN": wc.gcn_state_dict_from_segtpu,
+           "FCN8": wc.fcn8_state_dict_from_segtpu}
 # segtpu's spatial step takes an H that its model axis divides. Where the
 # smallest map has 2 rows, one a device (UNet, UperNet and DeepLab at 32,
 # SegResNet at 64), its spatial step on the 2 x 2 mesh is not its unsharded
@@ -106,7 +116,11 @@ CONVERT = {"PSPNet": wc.pspnet_state_dict_from_segtpu, "UNet": wc.unet_state_dic
 # step is the unsharded one there too): each model is held at a size where
 # segtpu's two agree after a step (to 3e-7 of a tensor, and 3e-9 of its
 # change, or closer; SegResNet at 80 and 128); PSPNet and UNet 3 steps and
-# the eval step, the others one step
+# the eval step, the others one step. segtpu's GCN (k 11: 5-row halos)
+# misupdates too wherever its stride-32 map holds no more rows a device
+# than the halo (R18 with use_deconv at 64, 96, 128, 256 and 320; with k 5
+# at 128): it is held at 384 (6 rows a device), where segtpu's two agree
+# to 2.6e-14
 SEG_SPATIAL = w.SEG_CASES
 SEG_EVAL = SEG_SPATIAL[:2]
 
@@ -117,8 +131,10 @@ def rel(got, want):
 
 
 def _seg_model(name):
-    """segtpu's model at tests/torch_dist_worker.py's small configuration."""
-    return seg_get_model(name, num_classes=w.CLASSES, **dw.ZOO[name][0])
+    """segtpu's model at tests/torch_dist_worker.py's small configuration
+    (with the spatial cases' args)."""
+    return seg_get_model(name, num_classes=w.CLASSES, **dw.ZOO[name][0],
+                         **w.SPATIAL_ARGS.get(name, {}))
 
 
 def _seg_variables(name, port):
@@ -138,11 +154,14 @@ def _seg_variables(name, port):
 
 def _seg_steps(name, batches, jmesh, spatial_=False, tp=False, eval_batch=None):
     """segtpu's model after each float64 SGD step on ``jmesh``, from the
-    port's seeded weights, in the port's layout; then an eval step."""
-    params, stats = _seg_variables(name, w.spatial_model(name))
+    port's seeded weights (``w.seg_case_model``), in the port's layout; then
+    an eval step. FCN8's VGG stages are narrowed as the port's."""
+    params, stats = _seg_variables(name, w.seg_case_model(name))
     convert = CONVERT[name]
     out = {}
-    with segtpu_float64():
+    with segtpu_float64(), pytest.MonkeyPatch.context() as mp:
+        if name == "FCN8":
+            mp.setattr(seg_vgg, "VGG16_STAGES", dw.FCN_NARROW)
         params, stats = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                                (params, stats))
         tx, _ = seg_state.make_optimizer_with_schedules(**w.SGD)
@@ -428,6 +447,36 @@ def test_segresnet_pool_indices_cross_the_boundary():
     assert (canvas_rows < 2 * 3).all()  # rank 0's canvas rows are [0, 6)
 
 
+@pytest.mark.parametrize("case", [(c, split) for c in w.TCONV_CASES for split in w.TCONV_SPLITS],
+                         ids=[f"k{k}-s{s}-p{p}-op{op}-{split}" for k, s, p, op in w.TCONV_CASES
+                              for split in w.TCONV_SPLITS])
+def test_transposed_conv_over_h_is_the_whole_conv(ranks, case):
+    """A transposed conv whose windows overlap in H (each band's output rows
+    summed onto their owners, the bias added once): output, input gradient
+    and weight and bias gradients of the unsharded conv."""
+    x, m, rng = w.tconv_inputs(*case)
+    want = _full_op(x, m, lambda shape: rng.normal(size=shape), [m.weight, m.bias])
+    for group in _model_groups(ranks[0]["ops"]):
+        _assert_sharded([g[("tconv", *case[0], case[1])] for g in group], want)
+
+
+def test_column_parallel_transposed_conv_over_h_is_the_whole_conv(ranks):
+    """Tensor parallel with spatial sharding: the column-parallel transposed
+    conv (ENet's 3x3/2) on the bands, each rank's gathered weight and bias
+    gradients the whole conv's."""
+    x, m, rng = w.tp_tconv_inputs()
+    xr = torch.from_numpy(x).clone().requires_grad_()
+    y = m(xr)
+    (y * torch.from_numpy(rng.normal(size=tuple(y.shape)))).sum().backward()
+    for group in _model_groups(ranks[0]["ops"]):
+        got = [g["tconv_tp"] for g in group]
+        assert rel(torch.cat([g[0] for g in got], 2), y.detach()) < OP_TOL
+        assert rel(torch.cat([g[1] for g in got], 2), xr.grad) < OP_TOL
+        for g in got:
+            assert rel(g[2]["0.weight"], m.weight.grad) < OP_TOL
+            assert rel(g[2]["0.bias"], m.bias.grad) < OP_TOL
+
+
 @pytest.mark.parametrize("name", w.TP_CONVS)
 def test_column_parallel_conv_is_the_whole_conv(ranks, name):
     x, g, m = w.tp_conv_inputs(name)
@@ -610,8 +659,11 @@ def test_pspdensenet_remat_backbone_recomputes_on_the_bands(ranks):
 def test_spatial_step_is_segtpus_on_a_2x2_mesh(ranks, case):
     (name, hw), n_steps = case
     got, seg, out = ranks
+    if (name, hw) in w.SEG_ONLY:
+        for r in got["spatial"]:
+            assert r[("seg", name, hw)]["spread"] == [0.0]
     snaps = torch.load(os.path.join(out, f"spatial-snaps-{name}-{hw}.pt"), weights_only=False)
-    start = w.spatial_model(name).state_dict()
+    start = w.seg_case_model(name).state_dict()
     port = {0: (None, {k: v.double() for k, v in start.items()}), **snaps}
     assert_step_matches(seg[(name, hw)]["snaps"], port, n_steps)
 
@@ -678,23 +730,23 @@ def test_val_grid_shows_whole_images(ranks):
     assert (images[0]["height"], images[0]["width"]) == (64, 3 * 64)
 
 
+# UNetResnet's encoding-style encoder is dilated past stride 8
 ZOO_STRIDES = {"PSPNet": 8, "PSPDenseNet": 8, "UperNet": 16, "DeepLab": 16,
-               "DeepLab_DUC_HDC": 8, "UNet": 16, "SegNet": 32, "SegResNet": 32}
+               "DeepLab_DUC_HDC": 8, "UNet": 16, "SegNet": 32, "SegResNet": 32,
+               "UNetResnet": 8, "ENet": 8, "GCN": 32, "FCN8": 32}
 
 
 @pytest.mark.parametrize("name", list(dw.ZOO))
-def test_spatial_shards_eight_of_the_twelve(name):
+def test_spatial_shards_all_twelve(name):
     model = get_model(name, device="cpu", num_classes=3, **dw.ZOO[name][0])
-    if name in ZOO_STRIDES:
-        assert spatial.check_model(model) == ZOO_STRIDES[name]
-    else:
-        with pytest.raises(ValueError, match=", ".join(spatial.SHARDED_MODELS)):
-            spatial.check_model(model)
-    assert set(spatial.SHARDED_MODELS) == set(ZOO_STRIDES)
+    assert spatial.check_model(model) == ZOO_STRIDES[name]
+    assert set(spatial.SHARDED_MODELS) == set(ZOO_STRIDES) == set(dw.ZOO)
 
 
 def test_spatial_raises_for_the_other_models():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        spatial.check_model(get_model("ENet", device="cpu", num_classes=3))
+    """A model without a ``spatial_stride`` raises, naming the twelve; a
+    crop too short for the ranks raises."""
+    with pytest.raises(ValueError, match=", ".join(spatial.SHARDED_MODELS)):
+        spatial.check_model(torch.nn.Conv2d(3, 3, 3))
     with pytest.raises(ValueError, match="some rank would hold none"):
         spatial.split(15, 16, 2)

@@ -59,25 +59,45 @@ STEP_HW, STEP_BATCH, STEP_STEPS = dw.STEP_HW, dw.STEP_BATCH, dw.STEP_STEPS
 # ceil-mode partial windows on rank 1; SegResNet at 65 (64 / 1), its stem
 # pool's indices crossing the boundary and its centre crop's odd trims, and
 # at 128 (64 / 64: at 64 its float64 steps part from any other summation
-# order by 4e-4 of the update within 3 steps)
+# order by 4e-4 of the update within 3 steps); UNetResnet at 40 (24 / 16),
+# its overlapping up-convs and its resizes down onto the stride-8 skips;
+# ENet at 33 (24 / 9), every pad-or-crop cutting or padding a row across the
+# boundary and the last crop cutting rank 1's rows; GCN (transposed-conv
+# decoder) at 65 (64 / 1), its pad-or-crops cutting a row at every level and
+# three rows at the end; FCN8 at 65 (64 / 1), the first conv's padding
+# leaving rank 1 199 of its 263 rows and the crops at 5, 9 and 31 reading
+# across the boundary
 SPATIAL_CASES = [("PSPNet", 40), ("PSPNet", 32), ("UNet", 33), ("UNet", 48), ("UNet", 32),
                  ("UperNet", 48), ("UperNet", 32), ("PSPDenseNet", 72), ("PSPDenseNet", 64),
                  ("DeepLab", 48), ("DeepLab", 32), ("DeepLab_DUC_HDC", 65),
                  ("DeepLab_DUC_HDC", 64), ("SegNet", 33), ("SegNet", 64), ("SegResNet", 65),
-                 ("SegResNet", 128)]
+                 ("SegResNet", 128), ("UNetResnet", 40), ("ENet", 33), ("GCN", 65),
+                 ("FCN8", 65)]
 # PSPDenseNet with remat_backbone: one spatial step, whose recompute runs
 # under the same layouts (against the one-process step without remat)
 REMAT_CASE = ("PSPDenseNet", 64)
 # the spatial cases held against segtpu's spatial step on its 2 x 2 mesh,
-# at sizes where it agrees with its unsharded one (tests/test_torch_model_axis.py)
+# at sizes where it agrees with its unsharded one (tests/test_torch_model_axis.py);
+# segtpu cannot split an odd H, so ENet, GCN and FCN8 are held at another
+# size, one step each (SEG_ONLY)
+SEG_ONLY = [("ENet", 48), ("GCN", 384), ("FCN8", 64)]
 SEG_CASES = [("PSPNet", 40), ("UNet", 48), ("UperNet", 48), ("PSPDenseNet", 72),
-             ("DeepLab", 48), ("DeepLab_DUC_HDC", 64), ("SegNet", 64), ("SegResNet", 128)]
+             ("DeepLab", 48), ("DeepLab_DUC_HDC", 64), ("SegNet", 64), ("SegResNet", 128),
+             ("UNetResnet", 40), *SEG_ONLY]
 SPATIAL_BATCH, SPATIAL_STEPS = 2, 3
+# the spatial cases' constructor args beside tests/torch_dist_worker.py's:
+# GCN with its transposed-conv decoder
+SPATIAL_ARGS = {"GCN": {"use_deconv": True}}
+# FCN8's FC6 and FC7 in the port-against-port cases; segtpu hard-codes them
+# 4096 wide, so its case (SEG_ONLY) takes that width
+FCN_FC_NARROW, SEG_FC_WIDTH = 32, 4096
 # each spatial model's map whose rows a test counts: (module, its stride)
 PROBES = {"PSPNet": ("layer4", 8), "UNet": ("middle_conv", 16),
           "UperNet": ("backbone.layer4", 16), "PSPDenseNet": ("block4", 8),
           "DeepLab": ("backbone.layer4", 16), "DeepLab_DUC_HDC": ("backbone.layer4", 8),
-          "SegNet": ("stage5_encoder", 16), "SegResNet": ("encoder", 32)}
+          "SegNet": ("stage5_encoder", 16), "SegResNet": ("encoder", 32),
+          "UNetResnet": ("layer4", 8), "ENet": ("bottleneck31", 8),
+          "GCN": ("backbone.layer4", 32), "FCN8": ("pool3", 8)}
 # the zoo under TP: convs of 16 or more channels sharded, so each model
 # shards some (FCN8's narrowed VGG included)
 ZOO_MIN_CHANNELS = 16
@@ -173,11 +193,35 @@ def spatial_batches(hw):
     return out
 
 
-def spatial_model(name, **kwargs):
-    from segtpu_torch.models import get_model
+_BUILD = threading.Lock()
 
-    return dw.no_dropout(get_model(name, device="cpu", seed=1, num_classes=CLASSES,
-                                   **dw.ZOO[name][0], **kwargs)).double()
+
+def spatial_model(name, fc_width=FCN_FC_NARROW, **kwargs):
+    """The spatial cases' model (float64, no dropout): tests/torch_dist_worker.py's
+    small configuration with SPATIAL_ARGS; FCN8's VGG stages narrowed and
+    its FC6 and FC7 ``fc_width`` wide."""
+    from segtpu_torch.backbones import vgg
+    from segtpu_torch.models import fcn, get_model
+
+    # the one-process reference builds its model in a thread beside the
+    # ranks' (case_spatial): one build at a time, or one would see the
+    # other's widths
+    with _BUILD:
+        prev = vgg.VGG16_STAGES, fcn.FC_WIDTH
+        if name == "FCN8":
+            vgg.VGG16_STAGES, fcn.FC_WIDTH = dw.FCN_NARROW, fc_width
+        try:
+            model = get_model(name, device="cpu", seed=1, num_classes=CLASSES,
+                              **dw.ZOO[name][0], **SPATIAL_ARGS.get(name, {}), **kwargs)
+        finally:
+            vgg.VGG16_STAGES, fcn.FC_WIDTH = prev
+    return dw.no_dropout(model).double()
+
+
+def seg_case_model(name):
+    """The model of a SEG_CASES case: FCN8's FC6 and FC7 at segtpu's
+    hard-coded width."""
+    return spatial_model(name, fc_width=SEG_FC_WIDTH)
 
 
 # -- the cases -------------------------------------------------------------------------
@@ -318,6 +362,33 @@ def case_ops(out):
         else:
             res[name] = _run_op(x, rows, band_fn, lambda shape, rng=rng: rng.normal(
                 size=shape), params)
+    for case in TCONV_CASES:
+        for split, (h, bounds) in TCONV_SPLITS.items():
+            x, m, rng = tconv_inputs(case, split)
+            assert spatial.shard_windows(m) == 1
+
+            def tconv_fn(t, m=m):
+                y = m(t)
+                return y, spatial.rows_of(y)
+
+            res[("tconv", *case, split)] = _run_op(x, spatial.Rows(bounds, h), tconv_fn,
+                                                   lambda shape, rng=rng: rng.normal(size=shape),
+                                                   [m.weight, m.bias])
+    # column parallel: each rank's slices gathered whole (each holds the
+    # model group's summed gradient)
+    x, m, rng = tp_tconv_inputs()
+    holder = nn.Sequential(m)
+    assert tensor_parallel.shard_model(holder, 2) == ["0"]
+    assert type(m) is tensor_parallel.HaloColumnConvTranspose2d
+
+    def tp_fn(t):
+        y = holder(t)
+        return y, spatial.rows_of(y)
+
+    y, dx, _ = _run_op(x, rows, tp_fn, lambda shape: rng.normal(size=shape))
+    dims = tensor_parallel.sharded_dims(holder)
+    res["tconv_tp"] = (y, dx, {n: tensor_parallel._gather_dim(p.grad, dims[n])
+                               for n, p in holder.named_parameters()})
     save(out, "ops", res)
 
 
@@ -329,7 +400,14 @@ def case_ops(out):
 # (a strided one and a dilated one)
 BAND_OPS = ["depthwise-k3-d1-s1", "depthwise-k3-d2-s1", "depthwise-k3-d1-s2", "avg_pool",
             "module_max_pool", "image_pool", "pixel_shuffle", "crop_top", "crop_shift",
-            "argmax_pool", "argmax_pool_flat", "xception"]
+            "argmax_pool", "argmax_pool_flat", "xception", "pad_or_crop+1", "pad_or_crop-1"]
+# the top-left pad-or-crops (ENet's and GCN's): dh = dw, and the target's
+# bands, which start a row away from the source's 6 / 7 (rank 1's first row
+# is rank 0's last at +1; rank 0's last is rank 1's first at -1). ENet's
+# last crop, from row 0 onto the input's layout with rank 1's band cut
+# short, is ``crop_top``
+PAD_OR_CROP = {"pad_or_crop+1": (1, ((0, 6), (6, 14))),
+               "pad_or_crop-1": (-1, ((0, 6), (6, 12)))}
 # the crops: (top, left, rows, columns, the target's bands); both cut
 # columns too, as the models' crops do (the layouts are kept by local shape)
 CROPS = {"crop_top": (0, 0, 12, 10, ((0, 6), (6, 12))),
@@ -388,6 +466,15 @@ def band_op_apply(name, t, module, sharded, extra=None):
         return (spatial.image_mean if sharded else pooling.image_mean)(t)
     if name == "pixel_shuffle":
         return (spatial.pixel_shuffle if sharded else torch.nn.functional.pixel_shuffle)(t, 2)
+    if name in PAD_OR_CROP:
+        d, bounds = PAD_OR_CROP[name]
+        n, cols = OP_H + d, OP_W + d
+        if not sharded:
+            return shape.pad_or_crop_tl(t, n, cols)
+        dst = spatial.Rows(bounds, n)
+        lo, hi = dst.mine
+        spatial.register(torch.empty(0, 0, hi - lo, cols), dst)
+        return spatial.pad_or_crop(t, hi - lo, cols)
     if name in CROPS:
         top, left, n, cols, bounds = CROPS[name]
         if not sharded:
@@ -410,6 +497,39 @@ def band_op_apply(name, t, module, sharded, extra=None):
     if sharded:
         scale = band(scale, spatial.rows_of(y).bounds, 2)
     return unpool(y * scale, idx, (2 * y.shape[-2], 2 * y.shape[-1]))
+
+
+# the transposed convs over H: (k, stride, padding, output padding), each
+# on the splits of TCONV_SPLITS (H, bounds): uneven, even, and a one-row
+# band whose outputs (a stride's rows) reach past the other's boundary
+TCONV_CASES = [(3, 2, 1, 1), (4, 2, 1, 0), (4, 2, 0, 0), (16, 8, 0, 0)]
+TCONV_SPLITS = {"uneven": (OP_H, OP_BOUNDS), "even": (12, ((0, 6), (6, 12))),
+                "one-row": (OP_H, ((0, 1), (1, OP_H)))}
+
+
+def _seeded_tconv(rng, cin, cout, k, s, p, op):
+    m = nn.ConvTranspose2d(cin, cout, k, s, p, op).double()
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(rng.normal(size=m.weight.shape)))
+        m.bias.copy_(torch.from_numpy(rng.normal(size=m.bias.shape)))
+    return m
+
+
+def tconv_inputs(case, split):
+    """(x, the conv (float64), the generator) of a transposed conv case."""
+    rng = np.random.default_rng(700 + 10 * TCONV_CASES.index(case) + list(TCONV_SPLITS).index(
+        split))
+    m = _seeded_tconv(rng, 3, 4, *case)
+    return rng.normal(size=(2, 3, TCONV_SPLITS[split][0], OP_W)), m, rng
+
+
+def tp_tconv_inputs():
+    """(x, the whole conv, the generator) of the column-parallel transposed
+    conv over H: ENet's 3x3/2 (padding 1, output padding 1), 8 -> 6
+    channels."""
+    rng = np.random.default_rng(41)
+    m = _seeded_tconv(rng, 8, 6, 3, 2, 1, 1)
+    return rng.normal(size=(2, 8, OP_H, OP_W)), m, rng
 
 
 TP_CONVS = ("depthwise", "transposed", "plain")
@@ -671,6 +791,18 @@ def case_spatial(out):
             torch.save(got["snaps"], os.path.join(out, f"spatial-snaps-{name}-{hw}.pt"))
         del got["snaps"], ref, model
         res[(name, hw)] = got
+    # the cases held against segtpu alone: one step (FCN8's FC6 and FC7 at
+    # segtpu's width)
+    for name, hw in SEG_ONLY:
+        model = seg_case_model(name)
+        convert_global_bn(model)
+        tensor_parallel.shard_model(model)
+        stride = spatial.check_model(model)
+        got = _train(model, spatial_batches(hw)[:1], lambda h: spatial.split(h, stride, MP))
+        if mesh.rank() == 0:
+            torch.save(got["snaps"], os.path.join(out, f"spatial-snaps-{name}-{hw}.pt"))
+        res[("seg", name, hw)] = {"spread": got["spread"], "losses": got["losses"]}
+        del got, model
     # remat_backbone against one process without it, one step (rank 0)
     name, hw = REMAT_CASE
     data = spatial_batches(hw)[:1]
