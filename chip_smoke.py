@@ -6,7 +6,8 @@
 Phases, each announced on its own line:
 
 1. device: the card's name and power limit (nvidia-smi), versions, TF32 off,
-   whether the card's Python imports tensorboardX, tensorboard and tqdm;
+   whether the card's Python imports tensorboardX, tensorboard,
+   ``torch.utils.tensorboard`` (the Trainer's writer: it must) and tqdm;
    where tqdm imports, one short PSPNet-R50 run through
    ``segtpu_torch.train.main`` with ``trainer.progress_bar`` on, whose bar
    text (``epoch 1 | loss ... | B ... D ...``) must reach stderr (every
@@ -78,6 +79,22 @@ Phases, each announced on its own line:
    eager serve module (predictions equal where the top-two margin exceeds
    SERVE_TOL, confidences within it); the export time, the artifact's size;
    neither path launches a kernel (the stem kernel is a backward);
+   float16 main path: ``segtpu_torch.train.main`` with the main path's flags
+   and ``trainer.compute_dtype: float16`` (STEPS steps and a validation),
+   then 2 warm-up and F16_TIMED timed steps: ms/step, imgs/s and peak memory
+   beside the bf16 main path's, one stem launch a step, finite losses, the
+   first loss against the bf16 path's on the same weights and batch within
+   F16_LOSS_TOL; the stem kernel on one float16 step's own x and dy against
+   its plain version (WGRAD_REL_TOL), the step's float32 stem gradient the
+   kernel's bit for bit; ``packed_argmax`` of the float16 logits on the
+   card against the CPU's bit for bit, and the seg stats of the three
+   SEGTPU_ARGMAX variants; the share of exactly-zero weight-gradient entries
+   of a float16 and a bf16 step from one state (float16 has no loss
+   scaler, as in segtpu); ``inference_lib``'s float16 sliding predict of one
+   1024x2048 frame, its seconds, its canvas's distance to fp32's at most
+   F16_CANVAS_FACTOR of bf16's, its class agreement with fp32 no lower; the
+   float16 serving export of best_model against its eager module, as the
+   bf16 one;
 9. UperNet main path, after the PSPNet trainer is freed: UperNet-ResNet101
    (output stride 16, fpn_out 256, the same data, optimizer and dtype)
    trained, timed and traced as in phase 6;
@@ -151,9 +168,10 @@ Phases, each announced on its own line:
     ``profile: 2``: before its first step the backbone equals the file and
     the rest a model built from the same seed, bit for bit; one stem launch
     a step; the load time; the timed ms/step beside the main path's; the
-    event file read back (framing, both CRCs, tags and steps, the logged
-    losses against the steps'); the val grid's write time at one row and at
-    15 rows (11535x2307: PNG and CRC); the profile's Chrome trace naming the
+    event file (written by ``torch.utils.tensorboard``) read back by
+    tensorboard's own reader (both CRCs, tags and steps, the logged losses
+    against the steps'); the val grid's write time at one row and at 15 rows
+    (11535x2307), and the 15 rows read back; the profile's Chrome trace naming the
     stem kernel. PSPDenseNet-201 from a seeded densenet201.pth on the 7x7
     stem: the same state check, ms/step and peak memory beside the
     from-scratch stem's. Then one seeded file per remaining family
@@ -302,6 +320,17 @@ INFER_TOL = 1e-4
 # difference|, and the top-two margin below which a prediction may differ
 SERVE_TOL = 1e-3
 TIMED_STEPS, TRACED_STEPS = 5, 3
+# the float16 main path: its timed steps after 2 warm-up; its first loss
+# against the bf16 main path's on the same weights and batch (each rounds the
+# activations to its own 8 or 11 bits; the loss is a mean over 4.7M pixels);
+# the float16 sliding canvas of one frame against fp32's, relative to the
+# largest logit, at most this share of bf16's: float16 rounds each
+# activation to 11 bits against bf16's 8, which would shrink the error
+# eightfold where the rounding alone sets it (the varied checkpoint's
+# random weights amplify both: bf16 reads tenths of the largest logit)
+F16_TIMED = 3
+F16_LOSS_TOL = 1e-2
+F16_CANVAS_FACTOR = 0.5
 # data parallel: the 2-rank steps against one process on the whole batch.
 # The bf16 steps: each step's global loss within DP_LOSS_TOL relative (both
 # sides' cuDNN kernels run at batch 4 against 8 and sum in other orders; the
@@ -709,7 +738,7 @@ def read_launches():
 
 
 def train_main_path(label, config, want_launches, card, recorder, after_train=None,
-                    ops=(), trace=True):
+                    ops=(), trace=True, timed=TIMED_STEPS):
     """Train ``config`` through ``segtpu_torch.train.main`` with the launch
     counts set to 0 just before and read just after, its steps recorded;
     check the epoch log (and its validation, where the config runs one);
@@ -717,7 +746,8 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
     ``trace``, trace the train step (outside the recorded run; ``ops`` as in
     ``profile_steps``). Returns (trainer, launches, one device-resident
     train batch, one val batch, the timed step's numbers with the traced
-    device ms by category, None untraced)."""
+    device ms by category, None untraced); ``timed`` steps are timed after
+    2 warm-up steps."""
     import torch
 
     from segtpu_torch import train as train_cli
@@ -774,7 +804,7 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
     def step():
         step_losses.append(trainer.train_step(trainer.state, images, labels)[0])
 
-    for i in range(2 + TIMED_STEPS):
+    for i in range(2 + timed):
         torch.cuda.synchronize()
         t = time.perf_counter()
         step()
@@ -782,7 +812,9 @@ def train_main_path(label, config, want_launches, card, recorder, after_train=No
         if i >= 2:
             step_s.append(time.perf_counter() - t)
     ms_step = 1e3 * sum(step_s) / len(step_s)
-    print(f"main path: {label} {CROP}x{CROP} bs{BATCH} bf16 train step "
+    dtype = {"bfloat16": "bf16", "float16": "fp16", "float32": "fp32"}[
+        config["trainer"]["compute_dtype"]]
+    print(f"main path: {label} {CROP}x{CROP} bs{BATCH} {dtype} train step "
           f"{ms_step:.1f} ms/step (min {1e3 * min(step_s):.1f}), "
           f"{BATCH * 1e3 / ms_step:.2f} imgs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
@@ -1364,10 +1396,10 @@ def inference_phase(best, workdir, seed, card):
     return total
 
 
-def serving_phase(best, workdir, seed, card):
-    """Export ``best`` at batch 1 and CROP x CROP on cuda, reload it and run
-    it on a seeded uint8 batch beside the eager serve module. Returns the
-    launches of the export and the reloaded program's run."""
+def serving_phase(best, workdir, seed, card, dtype="bfloat16"):
+    """Export ``best`` at batch 1 and CROP x CROP on cuda in ``dtype``, reload
+    it and run it on a seeded uint8 batch beside the eager serve module.
+    Returns the launches of the export and the reloaded program's run."""
     import torch
 
     from segtpu_torch.checkpoint import load_config_from_checkpoint, load_model_weights
@@ -1375,10 +1407,12 @@ def serving_phase(best, workdir, seed, card):
     from segtpu_torch.models import get_model
     from segtpu_torch.serving import ServeModule, export_checkpoint, load_serving_artifact
 
-    out = os.path.join(workdir, "serving")
+    out = os.path.join(workdir, f"serving-{dtype}")
+    compute_dtype = getattr(torch, dtype)
     reset_launches()
     t0 = time.perf_counter()
-    export_checkpoint(best, out, batch=1, hw=(CROP, CROP), device="cuda")
+    export_checkpoint(best, out, batch=1, hw=(CROP, CROP), device="cuda",
+                      compute_dtype=compute_dtype)
     export_s = time.perf_counter() - t0
     size = os.path.getsize(os.path.join(out, "model.pt2"))
     t0 = time.perf_counter()
@@ -1395,7 +1429,8 @@ def serving_phase(best, workdir, seed, card):
     mean, std, _, num_classes = dataset_meta(config)
     model = get_model(config["arch"]["type"], device="cuda", num_classes=num_classes,
                       **config["arch"]["args"])
-    serve = ServeModule(load_model_weights(best, model), mean, std).to("cuda").eval()
+    serve = ServeModule(load_model_weights(best, model), mean, std,
+                        compute_dtype).to("cuda").eval()
     with torch.no_grad():
         want_preds, want_conf = serve(images)
         top2 = torch.softmax(serve.logits(images), 1).topk(2, dim=1).values
@@ -1405,7 +1440,7 @@ def serving_phase(best, workdir, seed, card):
     program_ms = cuda_ms(lambda: call(images), iters=10)
     with torch.no_grad():
         eager_ms = cuda_ms(lambda: serve(images), iters=10)
-    print(f"serving export at batch 1, {CROP}x{CROP}, bf16, cuda: export {export_s:.1f} s, "
+    print(f"serving export at batch 1, {CROP}x{CROP}, {dtype}, cuda: export {export_s:.1f} s, "
           f"model.pt2 {size / 1e6:.1f} MB, reload {reload_s:.1f} s; launches {launches}; "
           f"predictions {tuple(preds.shape)} {preds.dtype}, confidence {conf.dtype}; "
           f"max |confidence - eager| {conf_err:.3e} (tol {SERVE_TOL}); predictions "
@@ -1423,6 +1458,198 @@ def serving_phase(best, workdir, seed, card):
           f"{mismatched})")
     check(all(v == 0 for v in launches.values()), f"serving launched {launches}")
     return launches
+
+
+def zero_grad_share(model):
+    """The share of the parameters' gradient entries that are exactly 0."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    return (sum(int((g == 0).sum()) for g in grads) / sum(g.numel() for g in grads),
+            grads[0].dtype)
+
+
+def float16_phase(workdir, seed, card, recorder, main_numbers, main_steps, best):
+    """The main path in float16: ``segtpu_torch.train.main`` with the main
+    path's flags and ``trainer.compute_dtype: float16`` (STEPS steps and a
+    validation, the counts set to 0 just before and read just after), then
+    2 warm-up and F16_TIMED timed steps beside the bf16 main path's; its
+    first loss against the bf16 path's on the same weights and batch; the
+    stem kernel on one float16 step's own x and dy against its plain version
+    (the step's weight gradient the kernel's, cast back to the weight's
+    float32); the card's ``packed_argmax`` of the step's float16 logits
+    against the CPU's, bit for bit, and the seg stats of the three
+    SEGTPU_ARGMAX variants; the share of exactly-zero weight-gradient
+    entries in a float16 and a bf16 step from one state; ``inference_lib``'s
+    float16 sliding predict of one 1024x2048 frame against fp32's and
+    bf16's (the inference phase's varied checkpoint); the float16
+    serving export of ``best`` against its eager module. Returns (launches
+    by path, numbers)."""
+    import numpy as np
+    import torch
+
+    from segtpu_torch import metrics
+    from segtpu_torch.checkpoint import load_model_weights
+    from segtpu_torch.data import dataset_meta
+    from segtpu_torch.inference_lib import make_predictor, sliding_predict
+    from segtpu_torch.models import get_model
+    from segtpu_torch.ops import conv_wgrad as cw
+    from segtpu_torch.ops import reductions
+
+    t_phase = time.perf_counter()
+    label = "PSPNet-R50 float16"
+    config = smoke_config({"type": "PSPNet", "args": {"backbone": "resnet50",
+                                                     "pallas_stem_wgrad": True}},
+                          os.path.join(workdir, "saved_float16"))
+    config["trainer"]["compute_dtype"] = "float16"
+    recorder.snap_before = None
+    trainer, launches, (images, labels), _, num = train_main_path(
+        label, config, {"stem_conv_wgrad": STEPS, "flat_conv_wgrad": 0,
+                        "flat_conv_dgrad": 0}, card, recorder, trace=False, timed=F16_TIMED)
+    check(trainer.compute_dtype == torch.float16, f"{label}: {trainer.compute_dtype}")
+    steps = list(recorder.steps)
+    print(f"{label}: {num['ms_per_step']:.1f} ms/step, {num['imgs_per_s']:.2f} imgs/s, "
+          f"peak {num['peak_gib']:.1f} GiB; the bf16 main path's "
+          f"{main_numbers['ms_per_step']:.1f} ms/step, {main_numbers['imgs_per_s']:.2f} "
+          f"imgs/s, {main_numbers['peak_gib']:.1f} GiB [{card}]")
+    # the recorder keeps each step's update count after it: 1 for the first
+    first, want = steps[0], main_steps[0]
+    check(first["step"] == want["step"] == 1 and first["batch"] == want["batch"],
+          f"{label}: the first steps' batches differ ({first}, {want})")
+    loss_err = abs(first["loss"] - want["loss"]) / abs(want["loss"])
+    print(f"{label}: losses {[r['loss'] for r in steps]}; first loss {first['loss']:.6f} "
+          f"against the bf16 path's {want['loss']:.6f} on the same weights and batch: rel "
+          f"err {loss_err:.3e} (tol {F16_LOSS_TOL}); stem launches a step "
+          f"{[r['stem_launches'] for r in steps]}")
+    check(loss_err < F16_LOSS_TOL, f"{label}: first loss off the bf16 path's: {loss_err}")
+    numbers = {label: {**num, "first_loss": first["loss"], "bf16_first_loss": want["loss"],
+                       "first_loss_rel_err": loss_err}}
+
+    # one float16 step's own stem x and dy through the kernel
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    stem = trainer.model.initial[0][0]
+    io = {}
+    hook = stem.register_forward_hook(keep_io(io))
+    reset_launches()
+    step_backward(trainer, trainer.model, state, images, labels, torch.float16)
+    torch.cuda.synchronize()
+    step_launches = read_launches()["stem_conv_wgrad"]
+    hook.remove()
+    x, dy = io["x"], io["dy"]
+    grad = stem.weight.grad
+    check(x.dtype == dy.dtype == torch.float16 and grad.dtype == torch.float32
+          and step_launches == 1,
+          f"{label}: stem x {x.dtype}, dy {dy.dtype}, dW {grad.dtype}, {step_launches} "
+          f"launches")
+    x_nhwc, dy_nhwc = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+    kernel = cw.stem_conv_wgrad(x_nhwc, dy_nhwc, kernel=3)
+    plain = cw.stem_conv_wgrad_plain(x_nhwc, dy_nhwc, kernel=3)
+    err, abs_err = rel_err(kernel, plain)
+    same = torch.equal(grad, kernel.permute(3, 2, 0, 1))
+    dy_zero = (dy == 0).float().mean().item()
+    print(f"{label}: stem conv x {tuple(x.shape)} {x.dtype}, dy {tuple(dy.shape)} "
+          f"{dy.dtype} ({dy_zero:.3e} of dy exactly 0); the kernel's dW on them vs plain: "
+          f"rel err {err:.3e}, max abs err {abs_err:.3e} (tol {WGRAD_REL_TOL}); the step's "
+          f"float32 weight gradient equals the kernel's dW bit for bit: {same}")
+    check(err < WGRAD_REL_TOL, f"{label}: the stem kernel on float16 x and dy: {err}")
+    check(same, f"{label}: the step's stem gradient is not the kernel's dW")
+    numbers[label].update(stem_max_abs_err=abs_err, stem_rel_err=err, dy_zero_share=dy_zero)
+    del x, dy, x_nhwc, dy_nhwc, kernel, plain, io
+
+    # exactly-zero weight-gradient entries: float16 against bf16, one state
+    shares = {"float16": zero_grad_share(trainer.model)}
+    step_backward(trainer, trainer.model, state, images, labels, torch.bfloat16)
+    shares["bfloat16"] = zero_grad_share(trainer.model)
+    print(f"{label}: exactly-zero weight-gradient entries, one step from one state and "
+          f"batch: float16 {shares['float16'][0]:.4e}, bf16 {shares['bfloat16'][0]:.4e} "
+          f"(gradients {shares['float16'][1]})")
+    numbers[label].update(zero_grad_share={k: v[0] for k, v in shares.items()})
+    trainer.model.zero_grad(set_to_none=True)
+
+    # the prediction argmax on the step's float16 logits
+    trainer.model.load_state_dict(state)
+    _, _, logits = trainer.eval_step(trainer.model, images, labels)
+    check(logits.dtype == torch.float16, f"{label}: eval logits {logits.dtype}")
+    packed = reductions.packed_argmax(logits, dim=1)
+    t0 = time.perf_counter()
+    packed_cpu = reductions.packed_argmax(logits.cpu(), dim=1)
+    cpu_s = time.perf_counter() - t0
+    plain_pred = torch.argmax(logits, dim=1)
+    differ = (packed != plain_pred).float().mean().item()
+    print(f"{label}: packed_argmax of the eval step's float16 logits "
+          f"{tuple(logits.shape)} on the card against the CPU's ({cpu_s:.2f} s there): "
+          f"equal bit for bit {torch.equal(packed.cpu(), packed_cpu)}; it differs from "
+          f"torch.argmax on {differ:.3e} of the pixels")
+    check(torch.equal(packed.cpu(), packed_cpu), f"{label}: packed_argmax card != CPU")
+    stats = {}
+    previous = os.environ.get("SEGTPU_ARGMAX")
+    try:
+        for variant in ("", "packed", "fast", "jnp"):
+            os.environ["SEGTPU_ARGMAX"] = variant
+            st = metrics.seg_stats_from_logits(logits, labels)
+            stats[variant or "unset"] = [float(st.correct), float(st.labeled),
+                                         float(metrics.summarize(st)["Mean_IoU"])]
+    finally:
+        if previous is None:
+            os.environ.pop("SEGTPU_ARGMAX", None)
+        else:
+            os.environ["SEGTPU_ARGMAX"] = previous
+    print(f"{label}: seg stats (correct, labeled, mIoU) by SEGTPU_ARGMAX: {stats}")
+    check(stats["unset"] == stats["packed"] and stats["fast"] == stats["jnp"],
+          f"{label}: the argmax variants' stats {stats}")
+    numbers[label].update(packed_differs_share=differ, argmax_stats=stats)
+    del logits, packed, packed_cpu, plain_pred
+
+    # inference_lib's float16 sliding predict against fp32, one frame, on
+    # the inference phase's "varied" checkpoint (its class maps vary, where
+    # a model after a few steps predicts one class)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    varied = os.path.join(workdir, "varied")
+    check(os.path.isdir(varied), f"{label}: no varied checkpoint at {varied}")
+    model = load_model_weights(varied, get_model("PSPNet", device="cuda",
+                                                 num_classes=CLASSES,
+                                                 **config["arch"]["args"]))
+    rgb = block_frame(np.random.default_rng(seed + 1)).astype(np.float32)
+    mean, std, _, _ = dataset_meta(config)
+    frame = (rgb / 255.0 - np.float32(mean)) / np.float32(std)
+    reset_launches()
+    canvases, secs = {}, {}
+    for dtype in ("float32", "float16", "bfloat16", "float16", "bfloat16"):
+        predict = make_predictor(model, compute_dtype=getattr(torch, dtype), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        canvases[dtype] = sliding_predict(predict, frame, CLASSES)
+        torch.cuda.synchronize()
+        secs[dtype] = time.perf_counter() - t0
+    infer_launches = read_launches()
+    ref = canvases["float32"]
+    scale = np.abs(ref).max()
+    err = {d: float(np.abs(canvases[d] - ref).max() / scale) for d in ("float16", "bfloat16")}
+    agree = {d: float(np.mean(canvases[d].argmax(-1) == ref.argmax(-1)))
+             for d in ("float16", "bfloat16")}
+    print(f"{label}: inference_lib sliding predict of the varied checkpoint, one "
+          f"{FRAME[0]}x{FRAME[1]} frame: float16 {secs['float16']:.3f} s, bf16 "
+          f"{secs['bfloat16']:.3f} s (second calls), fp32 {secs['float32']:.3f} s (first "
+          f"call); against fp32's canvas ({len(np.unique(ref.argmax(-1)))} classes in its "
+          f"map): max abs err float16 {err['float16']:.3e}, bf16 {err['bfloat16']:.3e} of "
+          f"the largest logit (float16 at most {F16_CANVAS_FACTOR} of bf16's); class maps "
+          f"agree on "
+          f"float16 {agree['float16']:.6f}, bf16 {agree['bfloat16']:.6f} of the pixels; "
+          f"launches {infer_launches} [{card}]")
+    check(err["float16"] <= F16_CANVAS_FACTOR * err["bfloat16"]
+          and agree["float16"] >= agree["bfloat16"],
+          f"{label}: the float16 canvas against fp32's: {err}, {agree}")
+    numbers[label].update(sliding_s=secs, sliding_err=err, sliding_agree=agree)
+    del model, predict
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("serving export: float16")
+    serve_launches = serving_phase(best, workdir, seed, card, dtype="float16")
+    numbers[label]["phase_s"] = time.perf_counter() - t_phase
+    print(f"{label}: the phase took {numbers[label]['phase_s']:.1f} s")
+    return ({label: launches, "inference float16": infer_launches,
+             "serving export float16": serve_launches}, numbers)
 
 
 DISK_TRAIN, DISK_VAL = 32, 8  # frames of the seeded CityScapes tree
@@ -1696,8 +1923,8 @@ def disk_phase(workdir, seed, card, recorder):
     check(trainer.state.step == 5 and math.isfinite(log["loss"])
           and "val_loss" in log and math.isfinite(log["val_loss"]),
           f"config.json's run: {trainer.state.step} steps, {log}")
-    check(trainer.writer is not None and trainer.writer.path.startswith(workdir)
-          and os.path.getsize(trainer.writer.path) > 0,
+    check(trainer.writer is not None and event_file(trainer.writer).startswith(workdir)
+          and os.path.getsize(event_file(trainer.writer)) > 0,
           "config.json's run wrote no events into the work directory")
     del trainer
     gc.collect()
@@ -2214,6 +2441,28 @@ def write_seeded_pth(path, model, seed):
     return sd, time.perf_counter() - t0
 
 
+def event_file(writer):
+    """The event file of a ``SummaryWriter``, closed or not: the newest in
+    its log directory (two runs started in one minute share the directory;
+    here they run one after the other)."""
+    paths = glob.glob(os.path.join(writer.get_logdir(), "events.out.tfevents.*"))
+    check(bool(paths), f"no event file in {writer.get_logdir()}")
+    return max(paths, key=os.path.getmtime)
+
+
+def read_events(path):
+    """Every event of ``path`` in file order, as tensorboard's own reader
+    gives them (it checks both CRCs of every record), on tensorboard's
+    stand-in for TensorFlow (the "notf" marker) unless the process has
+    imported TensorFlow."""
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+    from tensorboard.backend.event_processing.event_file_loader import LegacyEventFileLoader
+
+    return list(LegacyEventFileLoader(path).Load())
+
+
 def check_pretrained_state(label, state, sd, ref, model):
     """``state`` (tensors on the card) holds the file's tensors where
     ``model`` reads them, bit for bit, and ``ref``'s (the same seed, nothing
@@ -2256,7 +2505,6 @@ def pretrained_phases(workdir, card, recorder, main_numbers, zoo_numbers):
     from segtpu_torch import pretrained
     from segtpu_torch import trainer as trainer_mod
     from segtpu_torch.models import get_model
-    from segtpu_torch.utils import tensorboard as tb
 
     root = os.path.join(workdir, "pretrained")
     os.makedirs(root)
@@ -2310,50 +2558,52 @@ def pretrained_phases(workdir, card, recorder, main_numbers, zoo_numbers):
               f"train step {num['ms_per_step']:.1f} ms/step against the main path's "
               f"{main_numbers['ms_per_step']:.1f} (same flags, no pretrained) [{card}]")
 
-        path = trainer.writer.path
+        path = event_file(trainer.writer)
         t = time.perf_counter()
-        events = tb.read_events(path)
+        events = read_events(path)
         read_s = time.perf_counter() - t
         grid_tag = "val/inputs_targets_predictions"
-        got = [(v["tag"], e["step"]) for e in events[1:] for v in e["values"]]
+        got = [(v.tag, e.step) for e in events[1:] for v in e.summary.value]
         want = ([("train/loss", i + 1) for i in range(STEPS)]
                 + [(f"train/{k}", STEPS) for k in ("Pixel_Accuracy", "Mean_IoU",
                                                    "Learning_rate_0", "Learning_rate_1")]
                 + [(grid_tag, 1)] + [(f"val/{k}", STEPS)
                                      for k in ("loss", "Pixel_Accuracy", "Mean_IoU")])
-        check(events[0].get("file_version") == "brain.Event:2" and got == want,
+        check(events[0].file_version == "brain.Event:2" and got == want,
               f"{label}: events {got}")
-        losses = [v["simple_value"] for e in events[1:STEPS + 1] for v in e["values"]]
+        losses = [v.simple_value for e in events[1:STEPS + 1] for v in e.summary.value]
         check(losses == [float(np.float32(r["loss"])) for r in recorder.steps],
               f"{label}: logged losses {losses}, steps' {recorder.steps}")
-        image = next(v["image"] for e in events for v in e["values"] if "image" in v)
-        check((image["height"], image["width"], image["colorspace"]) == (CROP, 3 * CROP, 3),
-              f"{label}: val grid {image}")
+        image = next(v.image for e in events for v in e.summary.value if v.HasField("image"))
+        check((image.height, image.width, image.colorspace) == (CROP, 3 * CROP, 3),
+              f"{label}: val grid {image.height}x{image.width}x{image.colorspace}")
         numbers[label].update(events_bytes=os.path.getsize(path), events_read_s=read_s,
                               grid_1row_s=grid_s[-1])
         print(f"{label}: event file {os.path.getsize(path)} bytes, {len(events)} records, "
-              f"read back (CRCs checked) in {read_s:.3f} s; tags and steps {got[:1]}... "
-              f"as segtpu's; the val grid (1 row, {CROP}x{3 * CROP}) written in "
-              f"{grid_s[-1]:.3f} s")
+              f"read back by tensorboard's reader (CRCs checked) in {read_s:.3f} s; tags "
+              f"and steps {got[:1]}... as segtpu's; the val grid (1 row, {CROP}x{3 * CROP}) "
+              f"written in {grid_s[-1]:.3f} s")
 
         # the grid at full size, 15 rows of the run's own val image
         owner, viz = viz_seen[-1]
-        writer = tb.SummaryWriter(os.path.join(root, "grid15"))
+        writer = trainer_mod.summary_writer(os.path.join(root, "grid15"))
         fake = types.SimpleNamespace(val_loader=owner.val_loader, writer=writer)
         t = time.perf_counter()
         write_grid(fake, viz * GRID_ROWS, 1)
-        full_s = time.perf_counter() - t
         writer.close()
-        png = next(v["image"]["png"] for e in tb.read_events(writer.path) for v in e["values"]
-                   if "image" in v)
+        full_s = time.perf_counter() - t
         t = time.perf_counter()
-        tb.crc32c(png)
-        crc_s = time.perf_counter() - t
+        image = next(v.image for e in read_events(event_file(writer))
+                     for v in e.summary.value if v.HasField("image"))
+        read15_s = time.perf_counter() - t
+        check((image.height, image.width) == (GRID_ROWS * CROP, 3 * CROP),
+              f"val grid at full size {image.height}x{image.width}")
+        png = image.encoded_image_string
         numbers[label].update(grid_15row_s=full_s, grid_15row_png_bytes=len(png),
-                              grid_15row_crc_s=crc_s)
-        print(f"val grid at full size ({GRID_ROWS * CROP}x{3 * CROP}): written in "
-              f"{full_s:.3f} s, PNG {len(png) / 1e6:.1f} MB, its CRC-32C alone "
-              f"{crc_s:.3f} s (host)")
+                              grid_15row_read_s=read15_s)
+        print(f"val grid at full size ({GRID_ROWS * CROP}x{3 * CROP}): written and closed "
+              f"in {full_s:.3f} s, PNG {len(png) / 1e6:.1f} MB, read back by tensorboard's "
+              f"reader (CRCs checked) in {read15_s:.3f} s (host)")
 
         traces = glob.glob(os.path.join(trainer.checkpoint_dir, "profile", "*.json"))
         check(len(traces) == 1, f"{label}: profile traces {traces}")
@@ -3429,14 +3679,18 @@ def run(args, workdir, t_start):
     torch.backends.cudnn.allow_tf32 = False
     print("TF32: matmul.allow_tf32=False, cudnn.allow_tf32=False")
     imports = {}
-    # the port writes events without either tensorboard package; tqdm draws
+    # the port writes events through tensorboard's own writer (segtpu through
+    # tensorboardX, which the port does not use); tqdm draws
     # trainer.progress_bar
-    for module in ("tensorboardX", "tensorboard", "tqdm"):
-        found = subprocess.run([sys.executable, "-c", f"import {module}"], capture_output=True,
-                               text=True, timeout=120)
+    for module in ("tensorboardX", "tensorboard", "torch.utils.tensorboard", "tqdm"):
+        found = subprocess.run(
+            [sys.executable, "-c", f"import {module}; print(getattr({module}, "
+             f"'__version__', ''))"], capture_output=True, text=True, timeout=120)
         imports[module] = found.returncode == 0
         print(f"python3 -c 'import {module}': exit {found.returncode} "
-              f"{(found.stderr.strip().splitlines() or [''])[-1]}")
+              f"{found.stdout.strip()} {(found.stderr.strip().splitlines() or [''])[-1]}")
+    check(imports["torch.utils.tensorboard"],
+          "torch.utils.tensorboard does not import: the Trainer's events need it")
     if imports["tqdm"]:
         progress_bar_run(workdir, card)
     else:
@@ -3742,6 +3996,14 @@ def run(args, workdir, t_start):
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("main path: PSPNet-R50 float16")
+    f16_launches, f16_numbers = float16_phase(workdir, args.seed, card, recorder,
+                                              psp_numbers, resume["main_steps"],
+                                              resume["best"])
+    print("float16: " + json.dumps(f16_numbers))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("main path: UperNet-R101")
     trainer, uper_launches, (images, labels), _, _ = train_main_path(
         "UperNet-R101", smoke_config({"type": "UperNet", "args": {"backbone": "resnet101"}},
@@ -3807,6 +4069,7 @@ def run(args, workdir, t_start):
                  "are those of the flat_conv phase, 0 on every main path")
     paths = {"PSPNet-R50": psp_launches, "PSPNet-R50 resumed": resume["launches"],
              "inference": infer_launches, "serving export": serve_launches,
+             **f16_launches,
              "UperNet-R101": uper_launches, "PSPNet-R50 CityScapes on disk": disk_launches,
              **deeplab_launches, **zoo_launches, **pre_launches,
              "PSPNet-R50 optimizers and freezes (7 runs of 2 steps, 1 resumed step)":

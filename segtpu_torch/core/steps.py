@@ -2,9 +2,11 @@
 
 Counterpart of ``segtpu/core/steps.py``: forward, plus ``aux_weight`` times
 the aux loss, backward, the optimizer update, then seg stats from the
-logits, which stay on the device. Activations run under bf16 autocast; BN,
+logits, which stay on the device. Activations run under autocast to the
+16-bit ``compute_dtype`` (bfloat16, or float16 as segtpu takes it); BN,
 loss and optimizer state stay fp32. ``compute_dtype=torch.float32`` runs
-everything in fp32 (the CPU tests).
+everything in fp32 (the CPU tests). As in segtpu, float16 has no loss
+scaler: gradients under its smallest normal are subnormal or zero.
 
 Under a process group the step runs through the state's data-parallel wrap
 (``TrainState.data_parallel``) and its loss is the global batch's
@@ -56,14 +58,31 @@ def prep_images(images: torch.Tensor, norm_stats,
     return x.to(compute_dtype)
 
 
-def _autocast(device: torch.device, compute_dtype: torch.dtype):
-    return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
-                          enabled=compute_dtype == torch.bfloat16)
+#: the compute dtypes that run under autocast
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def autocast(device: torch.device, compute_dtype: torch.dtype):
+    """Autocast to ``compute_dtype`` on ``device`` where it is 16-bit, on the
+    GPU and on the CPU alike; off for float32 and float64."""
+    half = compute_dtype in HALF_DTYPES
+    return torch.autocast(device_type=device.type,
+                          dtype=compute_dtype if half else torch.bfloat16, enabled=half)
+
+
+def _in_compute_dtype(logits: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The logits in a 16-bit ``compute_dtype``, as segtpu's stay in it end
+    to end: CUDA's autocast runs the bilinear resize in float32, so the
+    model's logits come out float32 there (the CPU's stay 16-bit). The seg
+    stats' argmax (``metrics._argmax``) and the val grid take them so."""
+    if compute_dtype in HALF_DTYPES and logits.dtype != compute_dtype:
+        return logits.to(compute_dtype)
+    return logits
 
 
 def _forward_loss(model, x, labels, loss_fn, ignore_index, aux_weight, compute_dtype,
                   use_remat=False):
-    with _autocast(x.device, compute_dtype):
+    with autocast(x.device, compute_dtype):
         outputs = remat(model, model, x) if use_remat else model(x)
     logits = outputs["out"]
     loss = loss_fn(logits, labels, ignore_index=ignore_index)
@@ -105,7 +124,8 @@ def make_train_step(loss_fn: Callable, ignore_index: int = 255,
         state.sync_gradients()
         state.apply_gradients()
         with torch.no_grad():
-            stats = seg_stats_from_logits(logits.detach(), labels)
+            stats = seg_stats_from_logits(_in_compute_dtype(logits.detach(), compute_dtype),
+                                          labels)
         return loss.detach(), stats
 
     return step
@@ -115,8 +135,9 @@ def make_eval_step(loss_fn: Callable, ignore_index: int = 255,
                    compute_dtype: torch.dtype = torch.bfloat16,
                    norm_stats=None):
     """Returns ``step(model, images, labels, rows=None) -> (loss, SegStats,
-    logits)`` in eval mode, without gradients; the logits stay on the
-    device (this rank's rows under spatial sharding)."""
+    logits)`` in eval mode, without gradients; the logits, in a 16-bit
+    ``compute_dtype`` when it is one, stay on the device (this rank's rows
+    under spatial sharding)."""
 
     @torch.no_grad()
     def step(model, images, labels, rows=None):
@@ -125,6 +146,7 @@ def make_eval_step(loss_fn: Callable, ignore_index: int = 255,
         with _rows_scope(x, rows):
             loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
                                          0.0, compute_dtype)
+        logits = _in_compute_dtype(logits, compute_dtype)
         return loss, seg_stats_from_logits(logits, labels), logits
 
     return step

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from scipy import ndimage
 
 from segtpu_torch import resolve_device
+from segtpu_torch.core.steps import HALF_DTYPES, autocast
 from segtpu_torch.ops.reductions import fast_argmax
 from segtpu_torch.ops.resize import resize_bilinear
 
@@ -34,17 +35,18 @@ def make_predictor(model: torch.nn.Module, bucket: Optional[int] = None,
     float32 logits (N, classes, H, W). ``predict.device`` is the device.
 
     ``bucket`` pads H and W with zeros up to the next multiple before the
-    forward and crops the logits back. ``compute_dtype=torch.bfloat16`` runs
-    the forward under bf16 autocast; ``None`` (or float32) keeps it fp32.
+    forward and crops the logits back. ``compute_dtype=torch.bfloat16`` or
+    ``torch.float16`` runs the forward under autocast to it; ``None`` (or
+    float32) keeps it fp32. The logits come back float32 either way.
     """
     device = resolve_device(device)
-    if compute_dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be None, float32 or bfloat16, "
+    if compute_dtype not in (None, torch.float32) + HALF_DTYPES:
+        raise ValueError(f"compute_dtype must be None, float32, bfloat16 or float16, "
                          f"not {compute_dtype}")
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    autocast = compute_dtype == torch.bfloat16
+    dtype = compute_dtype or torch.float32
 
     @torch.inference_mode()
     def predict(x: torch.Tensor) -> torch.Tensor:
@@ -53,7 +55,7 @@ def make_predictor(model: torch.nn.Module, bucket: Optional[int] = None,
             x = F.pad(x, (0, (-w) % bucket, 0, (-h) % bucket))
         if device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=autocast):
+        with autocast(device, dtype):
             out = model(x)["out"]
         return out.float()[..., :h, :w]
 

@@ -8,10 +8,17 @@ its own shard's until :meth:`SegStats.all_reduce`.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from segtpu_torch.ops.reductions import fast_argmax, onehot_first_max, packed_argmax
+
+#: the values of ``SEGTPU_ARGMAX``, segtpu's switch of the prediction argmax
+ARGMAX_VARIANTS = ("packed", "fast", "jnp")
 
 
 class SegStats(NamedTuple):
@@ -62,15 +69,52 @@ def seg_stats(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> Seg
 
 
 def seg_stats_from_logits(logits: torch.Tensor, target: torch.Tensor) -> SegStats:
-    """Stats straight from (B, C, H, W) logits. The argmax is the first
-    maximum, on the logits' own dtype (bf16 logits are compared as bf16)."""
-    return eval_metrics(logits, target, logits.shape[1])
+    """Stats straight from (B, C, H, W) logits, through segtpu's prediction
+    argmax (:func:`_argmax`)."""
+    return seg_stats(_argmax(logits), target, logits.shape[1])
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """segtpu's prediction argmax over the classes of (B, C, H, W) logits.
+    ``SEGTPU_ARGMAX`` (read at each call) picks it: ``packed``
+    (:func:`packed_argmax`, which compares bfloat16 roundings), ``fast`` or
+    ``jnp`` (both the first maximum, ``torch.argmax``). Unset, 16-bit logits
+    (bfloat16 and float16) take ``packed`` and wider ones ``fast``, as in
+    segtpu. Another value raises, where segtpu falls back to ``fast``."""
+    variant = os.environ.get("SEGTPU_ARGMAX", "")
+    if not variant:
+        variant = ("packed" if logits.dtype in (torch.bfloat16, torch.float16)
+                   else "fast")
+    if variant == "packed":
+        return packed_argmax(logits, dim=1)
+    if variant in ("fast", "jnp"):
+        return fast_argmax(logits, dim=1)
+    raise ValueError(f"SEGTPU_ARGMAX={variant!r}; it takes one of "
+                     f"{', '.join(ARGMAX_VARIANTS)}")
+
+
+def seg_stats_from_logits_onehot(logits: torch.Tensor, target: torch.Tensor) -> SegStats:
+    """segtpu's index-free form of :func:`seg_stats_from_logits`: the counts
+    come from the one-hot of the first maximum (:func:`onehot_first_max`,
+    which compares the logits in their own dtype, as ``fast`` does), with
+    no argmax index. Equal to :func:`seg_stats_from_logits` under
+    ``SEGTPU_ARGMAX=fast``."""
+    c = logits.shape[1]
+    onehot_p = onehot_first_max(logits, dim=1).movedim(1, -1).reshape(-1, c)
+    target = target.reshape(-1).long()
+    valid = (target >= 0) & (target < c)
+    onehot_t = F.one_hot(torch.where(valid, target, 0), c).float() * valid[:, None]
+    inter = (onehot_p * onehot_t).sum(0)
+    area_pred = (onehot_p * valid[:, None]).sum(0)
+    area_lab = onehot_t.sum(0)
+    return SegStats(inter.sum(), valid.sum().float(), inter,
+                    area_pred + area_lab - inter)
 
 
 def eval_metrics(logits: torch.Tensor, target: torch.Tensor, num_classes: int) -> SegStats:
     """segtpu's ``eval_metrics``: the stats of the (B, C, H, W) logits'
-    argmax (``torch.argmax``, the first maximum), on the device."""
-    return seg_stats(torch.argmax(logits, dim=1), target, num_classes)
+    prediction argmax (:func:`_argmax`), on the device."""
+    return seg_stats(_argmax(logits), target, num_classes)
 
 
 def summarize(stats: SegStats) -> Dict[str, object]:

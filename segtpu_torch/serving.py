@@ -33,17 +33,18 @@ class ServeModule(nn.Module):
     """uint8 NHWC batch -> (predictions int32 NHW, confidence float32 NHW).
     Counterpart of segtpu's ``build_serve_fn``.
 
-    With ``compute_dtype=torch.bfloat16`` the input and every weight but
-    BatchNorm's are bf16 (a copy of ``model``), as in segtpu, whose layers
-    ride the input's dtype while BN computes in fp32. The dtypes are the
-    tensors' own, not autocast's, so the exported graph carries them.
+    With a 16-bit ``compute_dtype`` (``torch.bfloat16`` or ``torch.float16``)
+    the input and every weight but BatchNorm's are in it (a copy of
+    ``model``), as in segtpu, whose layers ride the input's dtype while BN
+    computes in fp32. The dtypes are the tensors' own, not autocast's, so
+    the exported graph carries them.
     """
 
     def __init__(self, model: nn.Module, mean, std,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if compute_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"compute_dtype must be float32 or bfloat16, not "
+        if compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(f"compute_dtype must be float32, bfloat16 or float16, not "
                              f"{compute_dtype}")
         if compute_dtype != torch.float32:
             model = copy.deepcopy(model)

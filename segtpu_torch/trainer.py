@@ -14,7 +14,8 @@ checkpoint replays the rest of the same epoch's batch order.
 A model built with ``pretrained`` gets its encoder from a local ``.pth``
 file before any resume (``pretrained.py``). With ``tensorboard`` (the
 default), segtpu's events go to ``<log_dir>/<name>/<timestamp>/`` (log_dir
-``saved/runs`` by default; ``utils/tensorboard.py``): ``train/loss`` every
+``saved/runs`` by default) through tensorboard's own writer
+(``torch.utils.tensorboard``): ``train/loss`` every
 ``log_per_iter`` iterations, the epoch's train metrics and learning rates,
 the val metrics and the 15-row val grid of input, target and prediction.
 ``progress_bar`` (on by default, as segtpu's) wraps each epoch in a tqdm
@@ -58,8 +59,10 @@ import logging
 import math
 import os
 import signal
+import sys
 import threading
 import time
+import types
 from typing import Dict, Optional
 
 import numpy as np
@@ -78,9 +81,8 @@ from segtpu_torch.nn.layers import convert_global_bn
 from segtpu_torch.pretrained import maybe_load_pretrained
 from segtpu_torch.utils.helpers import colorize_mask, denormalize, dir_exists
 from segtpu_torch.utils.logger import setup_logging
-from segtpu_torch.utils.tensorboard import SummaryWriter
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 #: the stride between the data indices' dropout seeds
 _RANK_SEED_STRIDE = 1_000_003
 #: the val batches whose first image goes into the grid
@@ -122,6 +124,40 @@ def rank_device(device, cfg_trainer: Dict) -> torch.device:
     return dev
 
 
+def compute_dtype(name) -> torch.dtype:
+    """``trainer.compute_dtype`` as a torch dtype: "bfloat16", or a name that
+    numpy's dtype maps to float16 or float32 ("float16", "half", "f2",
+    "float32", "single", "f4", ...), the names that segtpu's ``jnp.dtype``
+    maps to the three. Every other name raises."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    try:
+        dtype = np.dtype(name)
+    except (TypeError, ValueError):
+        dtype = None
+    for key in ("float16", "float32"):
+        if dtype == np.dtype(key):
+            return _DTYPES[key]
+    raise ValueError(f"unsupported trainer.compute_dtype {name!r}; supported: "
+                     f"{sorted(_DTYPES)} and the other names numpy's dtype maps to "
+                     f"float16 or float32")
+
+
+def summary_writer(logdir: str):
+    """tensorboard's own ``SummaryWriter`` (``torch.utils.tensorboard``) on
+    ``logdir``, imported when a run writes events. Unless the process has
+    imported TensorFlow already, tensorboard is told to use its own stand-in
+    for it (its ``tensorboard.compat.notf`` marker): the writer needs no
+    TensorFlow, as segtpu's tensorboardX needs none, and importing it takes
+    seconds and memory where it is installed."""
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+    from torch.utils.tensorboard import SummaryWriter
+
+    return SummaryWriter(logdir)
+
+
 class TrainingPreempted(RuntimeError):
     """Raised inside the epoch loop after a SIGTERM's checkpoint-latest was
     written (its message says where the resumed run starts)."""
@@ -130,8 +166,9 @@ class TrainingPreempted(RuntimeError):
 class Trainer:
     """Trains ``model`` on ``train_loader`` from a config with segtpu's
     schema. ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``;
-    ``trainer.compute_dtype`` ("bfloat16" default, or "float32") picks the
-    activation dtype. ``resume`` is a checkpoint directory to continue
+    ``trainer.compute_dtype`` ("bfloat16" default, "float16" or "float32";
+    :func:`compute_dtype`) picks the activation dtype of training and
+    validation. ``resume`` is a checkpoint directory to continue
     from; ``train_logger`` (a ``utils.logger.Logger``) gets each epoch's
     log."""
 
@@ -163,11 +200,7 @@ class Trainer:
             stride = spatial.check_model(model)
             self.train_rows = self._rows(train_loader, stride)
             self.val_rows = val_loader and self._rows(val_loader, stride)
-        dtype_name = cfg_trainer.get("compute_dtype", "bfloat16")
-        if dtype_name not in _DTYPES:
-            raise ValueError(f"unsupported trainer.compute_dtype {dtype_name!r}; "
-                             f"supported: {sorted(_DTYPES)}")
-        self.compute_dtype = _DTYPES[dtype_name]
+        self.compute_dtype = compute_dtype(cfg_trainer.get("compute_dtype", "bfloat16"))
         self.epochs = cfg_trainer["epochs"]
         self.save_period = cfg_trainer.get("save_period", 10)
         self.save_per_iters = cfg_trainer.get("save_per_iters", 0)
@@ -263,7 +296,7 @@ class Trainer:
         self.writer = None
         self.viz = cfg_trainer.get("tensorboard", True)  # the same on every rank
         if self.viz and mesh.is_main():
-            self.writer = SummaryWriter(os.path.join(
+            self.writer = summary_writer(os.path.join(
                 cfg_trainer.get("log_dir", "saved/runs"), config.get("name", "run"),
                 start_time))
         self.profile_steps = cfg_trainer.get("profile", 0) if mesh.is_main() else 0

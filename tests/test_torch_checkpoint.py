@@ -321,7 +321,9 @@ def test_unported_trainer_keys_are_logged(tmp_path):
         logger.removeHandler(handler)
     msgs = [r.getMessage() for r in records if r.levelno == logging.WARNING]
     assert msgs == []
-    assert os.path.dirname(trainer.writer.path).startswith(str(tmp_path))
+    logdir = trainer.writer.get_logdir()
+    assert logdir.startswith(str(tmp_path))
+    assert list(Path(logdir).glob("events.out.tfevents.*"))
 
 
 @pytest.mark.parametrize("arch", sorted(MODELS))

@@ -70,6 +70,35 @@ def test_stem_wgrad_kernel_matches_plain(shape, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 65, 65, 3, 64, 3), (8, 769, 769, 3, 64, 3)])
+def test_stem_wgrad_kernel_on_float16_matches_plain(shape, cuda_device):
+    """``trainer.compute_dtype: float16``: the stem conv under float16
+    autocast gets float16 x and dy (dy at a cross-entropy gradient's scale,
+    partly subnormal in float16). The kernel rounds both to bf16, as
+    segtpu's does, and matches its plain version on them; the conv's
+    float32 weight gradient is the kernel's dW, bit for bit."""
+    n, h, w, c, co, k = shape
+    rng = np.random.default_rng(sum(shape) + 16)
+    x = torch.from_numpy(rng.normal(size=(n, c, h, w)).astype(np.float32)).to(
+        cuda_device).half().contiguous(memory_format=torch.channels_last)
+    conv = cw.StemConv2d(c, co, k, lambda t, _: t.normal_(0, 0.1)).to(cuda_device)
+    with torch.autocast("cuda", dtype=torch.float16):
+        y = conv(x)
+    assert y.dtype == torch.float16
+    up = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(np.float32)).to(cuda_device)
+    dy = (up * 2e-7).half().contiguous(memory_format=torch.channels_last)
+    before = cw.stem_conv_wgrad.launches
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert cw.stem_conv_wgrad.launches == before + 1
+    assert conv.weight.grad.dtype == torch.float32
+    x_nhwc, dy_nhwc = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+    got = cw.stem_conv_wgrad(x_nhwc, dy_nhwc, kernel=k)
+    assert torch.equal(conv.weight.grad, got.permute(3, 2, 0, 1))
+    assert _rel_max(got, cw.stem_conv_wgrad_plain(x_nhwc, dy_nhwc, k)) < WGRAD_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_plan_shared_memory_is_the_kernels(shape, cuda_device):
     n, h, w, c, co, k = shape

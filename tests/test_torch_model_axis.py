@@ -62,7 +62,9 @@ run, this process computes segtpu's side. The checks:
 import glob
 import os
 import shutil
+import sys
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -87,7 +89,6 @@ from segtpu.utils.weight_convert import MODEL_CONVERTERS
 from segtpu_torch.core import mesh, spatial
 from segtpu_torch.models import get_model
 from segtpu_torch.ops.pooling import adaptive_avg_pool_multi
-from segtpu_torch.utils import tensorboard as tb
 from segtpu_torch.utils import weight_convert as wc
 from torch_parity import segtpu_float64, state_dict64
 from torch_zoo import TOL, TOL64, assert_step_matches
@@ -724,10 +725,16 @@ def test_model_axis_checkpoint_resumes_on_one_and_on_four(ranks):
 def test_val_grid_shows_whole_images(ranks):
     _, _, out = ranks
     (path,) = glob.glob(os.path.join(out, "trainer", "runs", "*", "*", "events.out.*"))
-    images = [v["image"] for e in tb.read_events(path) for v in e["values"]
-              if v.get("tag") == "val/inputs_targets_predictions"]
+    # tensorboard's own reader, on its stand-in for TensorFlow (the "notf"
+    # marker), which checks both CRCs of every record
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
+    from tensorboard.backend.event_processing.event_file_loader import LegacyEventFileLoader
+
+    images = [v.image for e in LegacyEventFileLoader(path).Load() for v in e.summary.value
+              if v.tag == "val/inputs_targets_predictions"]
     assert len(images) == 1
-    assert (images[0]["height"], images[0]["width"]) == (64, 3 * 64)
+    assert (images[0].height, images[0].width) == (64, 3 * 64)
 
 
 # UNetResnet's encoding-style encoder is dilated past stride 8

@@ -1,12 +1,7 @@
-"""The rest of the trainer's runtime against segtpu's, on the CPU: the event
-writer (``segtpu_torch/utils/tensorboard.py``), the Trainer's events and
-val grid, ``profile``, ``Logger``, ``summary``, ``transforms`` and
-``eval_metrics``.
+"""The rest of the trainer's runtime against segtpu's, on the CPU: the
+Trainer's events (written through tensorboard's own writer) and val grid,
+``profile``, ``Logger``, ``summary``, ``transforms`` and ``eval_metrics``.
 
-* The writer: scalars and images written by the port and by tensorboardX's
-  ``SummaryWriter`` for the same calls, read back by tensorboard's
-  ``EventAccumulator`` (which checks the CRCs): the same tags, steps and
-  values, and images that decode to the same pixels.
 * The Trainer: one run of each framework's Trainer, PSPNet-R18 at 33 px,
   two iterations and one validation epoch of two batches, uint8
   transport, fp32, dropout the identity on both sides, on the same weights
@@ -59,7 +54,6 @@ from segtpu_torch.data import Synthetic
 from segtpu_torch.models import get_model
 from segtpu_torch.trainer import Trainer
 from segtpu_torch.utils import logger, summary
-from segtpu_torch.utils import tensorboard as tb
 from segtpu_torch.utils import transforms as PT
 from segtpu_torch.utils.weight_convert import pspnet_state_dict_from_segtpu
 from torch_parity import IdentityDropout, no_dropout
@@ -71,12 +65,17 @@ TOL = 1e-4
 GRID_TAG = "val/inputs_targets_predictions"
 
 
-def _accumulate(logdir):
-    """tensorboard's reader over ``logdir``. The ``notf`` marker makes it
-    read through its own record reader (which checks both CRCs of every
-    record) rather than import TensorFlow."""
+def _notf():
+    """The ``notf`` marker makes tensorboard read through its own record
+    reader (which checks both CRCs of every record) rather than import
+    TensorFlow."""
     sys.modules.setdefault("tensorboard.compat.notf",
                            types.ModuleType("tensorboard.compat.notf"))
+
+
+def _accumulate(logdir):
+    """tensorboard's reader over ``logdir``."""
+    _notf()
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
     acc = EventAccumulator(logdir, size_guidance={"scalars": 0, "images": 0})
@@ -89,50 +88,6 @@ def _decode(png: bytes) -> np.ndarray:
 
     with Image.open(io.BytesIO(png)) as image:
         return np.asarray(image)
-
-
-# -- the writer -------------------------------------------------------------------
-
-@pytest.mark.parametrize("n", [0, 1, 9, 1023, 8 * 1024 - 1, 8 * 1024, 50_001])
-def test_crc32c_is_tensorboardxs(n):
-    from tensorboardX.crc32c import crc32c
-
-    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
-    assert tb.crc32c(data) == crc32c(data)
-
-
-def test_writer_round_trip_equals_tensorboardx(tmp_path):
-    from tensorboardX import SummaryWriter as TensorboardX
-
-    rng = np.random.default_rng(0)
-    calls = [("scalar", "train/loss", 1.25, 1), ("scalar", "train/loss", 0.1, 2),
-             ("scalar", "val/Mean_IoU", 0.0, 0), ("scalar", "lr", 3e-7, 123456789),
-             ("image", "grid", rng.random((3, 40, 60)), 1),
-             ("image", "grid", rng.random((3, 300, 200), dtype=np.float32), 2),
-             ("image", "mask", rng.integers(0, 256, (3, 7, 5), np.uint8), 0)]
-    for name, cls in (("port", tb.SummaryWriter), ("tbx", TensorboardX)):
-        writer = cls(str(tmp_path / name))
-        for kind, tag, value, step in calls:
-            (writer.add_scalar if kind == "scalar" else writer.add_image)(tag, value, step)
-        writer.close()
-    port, tbx = _accumulate(str(tmp_path / "port")), _accumulate(str(tmp_path / "tbx"))
-    assert port.Tags()["scalars"] == tbx.Tags()["scalars"] == ["train/loss", "val/Mean_IoU",
-                                                               "lr"]
-    assert port.Tags()["images"] == tbx.Tags()["images"] == ["grid", "mask"]
-    for tag in port.Tags()["scalars"]:
-        assert ([(e.step, e.value) for e in port.Scalars(tag)]
-                == [(e.step, e.value) for e in tbx.Scalars(tag)])
-    for tag in port.Tags()["images"]:
-        got, want = port.Images(tag), tbx.Images(tag)
-        assert [(e.step, e.height, e.width) for e in got] == [(e.step, e.height, e.width)
-                                                              for e in want]
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(_decode(g.encoded_image_string),
-                                          _decode(w.encoded_image_string))
-    events = tb.read_events(glob.glob(str(tmp_path / "port" / "events.out.tfevents.*"))[0])
-    assert events[0]["file_version"] == "brain.Event:2"
-    assert [(v["tag"], e["step"]) for e in events[1:] for v in e["values"]] == [
-        (tag, step) for _, tag, _, step in calls]
 
 
 # -- the Trainer against segtpu's ---------------------------------------------
@@ -165,8 +120,13 @@ def _config(root, framework):
 
 
 def _events(trainer_log_dir):
+    """The run's directory and its events in file order, as tensorboard
+    reads them."""
+    _notf()
+    from tensorboard.backend.event_processing.event_file_loader import LegacyEventFileLoader
+
     path, = glob.glob(os.path.join(trainer_log_dir, "*", "*", "events.out.tfevents.*"))
-    return os.path.dirname(path), tb.read_events(path)
+    return os.path.dirname(path), list(LegacyEventFileLoader(path).Load())
 
 
 @pytest.fixture(scope="module")
@@ -204,7 +164,8 @@ def runs(tmp_path_factory):
 
 def test_trainer_writes_segtpus_tags_at_segtpus_steps(runs):
     def tag_steps(events):
-        return [(v["tag"], e["step"]) for e in events[1:] for v in e["values"]]
+        assert events[0].file_version == "brain.Event:2"
+        return [(v.tag, e.step) for e in events[1:] for v in e.summary.value]
 
     want = tag_steps(runs["segtpu"][1])
     assert tag_steps(runs["port"][1]) == want

@@ -235,10 +235,13 @@ def test_cli_trains_on_two_cpu_processes(tmp_path):
     assert len(list((tmp_path / "runs").glob("*/*/events.out.tfevents.*"))) == 1
 
 
-@pytest.mark.parametrize("dtype", ["float16", "bf16", "float64"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "float64", "Float16"])
 def test_trainer_rejects_an_unsupported_compute_dtype(dtype):
+    """float16 is taken since segtpu's float16 was ported
+    (``tests/test_torch_float16.py``); every name that numpy's dtype does
+    not map to float16 or float32, but "bfloat16", still raises."""
     with pytest.raises(ValueError, match=rf"compute_dtype '{dtype}'; supported: "
-                                         r"\['bfloat16', 'float32'\]"):
+                                         r"\['bfloat16', 'float16', 'float32'\]"):
         _cpu_trainer(_config(compute_dtype=dtype))
 
 
