@@ -20,6 +20,12 @@ layout over the model group.
 The stats stay each rank's own until the trainer sums them at the epoch's
 end.
 
+While ``torch.profiler`` records, the train step runs in the port's span
+``segtpu_torch.step`` (``tracing.py``), whose children are ``.prep``,
+``.forward`` (the model and the loss), ``.backward`` (``zero_grad`` and
+``backward``), ``.grad_sync`` (where the state has gradient groups),
+``.optimizer`` and ``.seg_stats``.
+
 ``remat`` (segtpu's ``trainer.remat``) wraps the forward in
 ``torch.utils.checkpoint`` (``use_reentrant=False``, dropout's generator
 state preserved): the backward recomputes the activations instead of
@@ -43,6 +49,7 @@ from segtpu_torch.core import mesh, spatial
 from segtpu_torch.core.state import TrainState
 from segtpu_torch.metrics import seg_stats_from_logits
 from segtpu_torch.nn.layers import remat
+from segtpu_torch.tracing import span
 
 
 def prep_images(images: torch.Tensor, norm_stats,
@@ -110,23 +117,30 @@ def make_train_step(loss_fn: Callable, ignore_index: int = 255,
     ``rows`` is the input's layout under spatial sharding."""
 
     def step(state: TrainState, images, labels, rows=None):
-        model = state.train_module
-        model.train()
-        x = prep_images(images, norm_stats, compute_dtype)
-        with _rows_scope(x, rows):
-            loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
-                                         aux_weight, compute_dtype, remat)
-            state.optimizer.zero_grad(set_to_none=True)
-            if state.wrapped is None:
-                loss.backward()
-            else:  # the wrap's mean of the ranks' gradients becomes their sum
-                (loss * mesh.world_size()).backward()
-        state.sync_gradients()
-        state.apply_gradients()
-        with torch.no_grad():
-            stats = seg_stats_from_logits(_in_compute_dtype(logits.detach(), compute_dtype),
-                                          labels)
-        return loss.detach(), stats
+        with span("segtpu_torch.step"):
+            model = state.train_module
+            model.train()
+            with span("segtpu_torch.step.prep"):
+                x = prep_images(images, norm_stats, compute_dtype)
+            with _rows_scope(x, rows):
+                with span("segtpu_torch.step.forward"):
+                    loss, logits = _forward_loss(model, x, labels, loss_fn, ignore_index,
+                                                 aux_weight, compute_dtype, remat)
+                with span("segtpu_torch.step.backward"):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    if state.wrapped is None:
+                        loss.backward()
+                    else:  # the wrap's mean of the ranks' gradients becomes their sum
+                        (loss * mesh.world_size()).backward()
+            if state.grad_groups:
+                with span("segtpu_torch.step.grad_sync"):
+                    state.sync_gradients()
+            with span("segtpu_torch.step.optimizer"):
+                state.apply_gradients()
+            with torch.no_grad(), span("segtpu_torch.step.seg_stats"):
+                stats = seg_stats_from_logits(
+                    _in_compute_dtype(logits.detach(), compute_dtype), labels)
+            return loss.detach(), stats
 
     return step
 

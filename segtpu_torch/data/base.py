@@ -413,7 +413,10 @@ class DevicePrefetcher:
     At most ``depth`` batches wait in the queue. A loader's error is raised
     to the consumer. On the CPU the tensors are the loader's arrays. With
     ``rows`` (a ``core/spatial.py`` layout, under spatial sharding) each
-    batch keeps this rank's band of rows before it leaves the host."""
+    batch keeps this rank's band of rows before it leaves the host. While
+    ``torch.profiler`` records, each take from the queue (the end's
+    included) is the port's span ``segtpu_torch.data.wait``
+    (``tracing.py``): the time the consumer waited for the loader."""
 
     def __init__(self, loader, device, depth: int = 2, rows=None):
         import torch
@@ -428,6 +431,8 @@ class DevicePrefetcher:
 
     def __iter__(self):
         import torch
+
+        from segtpu_torch.tracing import span
 
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
@@ -465,7 +470,8 @@ class DevicePrefetcher:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("segtpu_torch.data.wait"):
+                    item = q.get()
                 if item is None:
                     if err:
                         raise err[0]

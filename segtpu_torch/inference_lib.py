@@ -10,6 +10,13 @@ A frame is uploaded once. Tiles are cut and zero-padded on the device,
 forwarded in fixed-size chunks, flip-averaged and accumulated into the
 canvas there; the only download is the canvas, or with ``class_map=True``
 the (H, W) class map.
+
+While ``torch.profiler`` records, ``sliding_predict`` runs in the port's
+span ``segtpu_torch.sliding`` (``tracing.py``), whose children are
+``.upload`` (the frame to the device), ``.tiles`` (cut, pad, stack and
+flip), ``.forward`` (each chunk's padding and forward) and ``.canvas``
+(from the concat of the chunks' logits to the class map on the device);
+the class map's copy to the host is the outer span's own.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from segtpu_torch import resolve_device
 from segtpu_torch.core.steps import HALF_DTYPES, autocast
 from segtpu_torch.ops.reductions import fast_argmax
 from segtpu_torch.ops.resize import resize_bilinear
+from segtpu_torch.tracing import span
 
 
 def make_predictor(model: torch.nn.Module, bucket: Optional[int] = None,
@@ -63,11 +71,12 @@ def make_predictor(model: torch.nn.Module, bucket: Optional[int] = None,
     return predict
 
 
-def _download(total: torch.Tensor, class_map: bool) -> np.ndarray:
-    """(C, H, W) canvas -> (H, W, C) float32, or the (H, W) int32 class map."""
+def _result(total: torch.Tensor, class_map: bool) -> torch.Tensor:
+    """(C, H, W) canvas -> (H, W, C) float32, or the (H, W) int32 class map,
+    on the canvas's device."""
     if class_map:
-        return fast_argmax(total, dim=0).to(torch.int32).cpu().numpy()
-    return total.permute(1, 2, 0).cpu().numpy()
+        return fast_argmax(total, dim=0).to(torch.int32)
+    return total.permute(1, 2, 0)
 
 
 def multi_scale_predict(predict_fn: Callable, image: np.ndarray,
@@ -94,7 +103,7 @@ def multi_scale_predict(predict_fn: Callable, image: np.ndarray,
                                           align_corners=True)
                 logits = 0.5 * (logits + flipped.flip(-1))
             total += logits
-        return _download(total[0] / len(scales), class_map)
+        return _result(total[0] / len(scales), class_map).cpu().numpy()
 
 
 def _tile_boxes(h: int, w: int, tile_divisor: float, overlap: float):
@@ -130,30 +139,35 @@ def sliding_predict(predict_fn: Callable, image: np.ndarray, num_classes: int,
     device = predict_fn.device
     h, w = image.shape[:2]
     tile_h, tile_w, boxes = _tile_boxes(h, w, tile_divisor, overlap)
-    with torch.inference_mode():
-        frame = torch.from_numpy(np.ascontiguousarray(image, np.float32))
-        frame = frame.to(device).permute(2, 0, 1)
-        batch = torch.stack([
-            F.pad(frame[:, y0:y1, x0:x1], (0, tile_w - (x1 - x0), 0, tile_h - (y1 - y0)))
-            for y0, y1, x0, x1 in boxes])
-        if flip:
-            batch = torch.cat([batch, batch.flip(-1)])
-        chunk_size = max_tile_batch or len(batch)
-        outs = []
-        for i in range(0, len(batch), chunk_size):
-            chunk = batch[i:i + chunk_size]
-            real = len(chunk)
-            if real < chunk_size:
-                chunk = torch.cat([chunk, chunk.new_zeros(
-                    (chunk_size - real,) + chunk.shape[1:])])
-            outs.append(predict_fn(chunk)[:real])
-        logits = torch.cat(outs)
-        if flip:
-            t = len(boxes)
-            logits = 0.5 * (logits[:t] + logits[t:].flip(-1))
-        total = torch.zeros((num_classes, h, w), device=device)
-        count = torch.zeros((1, h, w), device=device)
-        for (y0, y1, x0, x1), lg in zip(boxes, logits):
-            total[:, y0:y1, x0:x1] += lg[:, :y1 - y0, :x1 - x0]
-            count[:, y0:y1, x0:x1] += 1.0
-        return _download(total / count, class_map)
+    with torch.inference_mode(), span("segtpu_torch.sliding"):
+        with span("segtpu_torch.sliding.upload"):
+            frame = torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(device)
+        with span("segtpu_torch.sliding.tiles"):
+            frame = frame.permute(2, 0, 1)
+            batch = torch.stack([
+                F.pad(frame[:, y0:y1, x0:x1], (0, tile_w - (x1 - x0), 0, tile_h - (y1 - y0)))
+                for y0, y1, x0, x1 in boxes])
+            if flip:
+                batch = torch.cat([batch, batch.flip(-1)])
+        with span("segtpu_torch.sliding.forward"):
+            chunk_size = max_tile_batch or len(batch)
+            outs = []
+            for i in range(0, len(batch), chunk_size):
+                chunk = batch[i:i + chunk_size]
+                real = len(chunk)
+                if real < chunk_size:
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (chunk_size - real,) + chunk.shape[1:])])
+                outs.append(predict_fn(chunk)[:real])
+        with span("segtpu_torch.sliding.canvas"):
+            logits = torch.cat(outs)
+            if flip:
+                t = len(boxes)
+                logits = 0.5 * (logits[:t] + logits[t:].flip(-1))
+            total = torch.zeros((num_classes, h, w), device=device)
+            count = torch.zeros((1, h, w), device=device)
+            for (y0, y1, x0, x1), lg in zip(boxes, logits):
+                total[:, y0:y1, x0:x1] += lg[:, :y1 - y0, :x1 - x0]
+                count[:, y0:y1, x0:x1] += 1.0
+            result = _result(total / count, class_map)
+        return result.cpu().numpy()

@@ -22,7 +22,10 @@ the val metrics and the 15-row val grid of input, target and prediction.
 bar on rank 0, its text the loss and step times at each ``log_per_iter``;
 the log line stays.
 ``profile: N`` traces the first N steps of the first epoch with
-``torch.profiler`` into ``<checkpoint dir>/profile/``, a Chrome trace.
+``torch.profiler`` into ``<checkpoint dir>/profile/``, a Chrome trace that
+carries the port's spans (``tracing.py``) above the operations they
+launched: each step's ``segtpu_torch.step`` and its phases, and each wait
+for the loader's next batch, ``segtpu_torch.data.wait``.
 
 Data parallel, with segtpu's semantics: under a process group of more than
 one rank (``core/mesh.py``; ``segtpu_torch.train`` or torchrun starts one
